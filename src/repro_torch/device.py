@@ -1,0 +1,37 @@
+"""Device resolution for the port's entry points.
+
+Every public entry point takes ``device=None`` and resolves it here:
+``None`` means the CUDA device, and a missing CUDA device is an error, never
+a silent fall back to the CPU. Tests and CPU users pass ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _disable_tf32() -> None:
+    """Keep float32 matmuls and convolutions in full float32: TF32 keeps
+    about three decimal digits and would break the 1e-4 distance tolerance
+    of the matmul-identity scan (``scan-mxu``) and the brute-force oracle."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` -> ``cuda``; raise if a CUDA device is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port on the CPU")
+        _disable_tf32()
+    elif dev.type != "cpu":
+        raise ValueError(f"device={device!r}; expected 'cuda' or 'cpu'")
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for queued work on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
