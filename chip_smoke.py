@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # the full run (2**22 x 256)
     python3 chip_smoke.py --num-series 65536   # a short check
+    python3 chip_smoke.py --disk-dir /big/tmp  # put the disk index there
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -16,9 +17,18 @@ Phases (any failure ends the run with a non-zero exit):
    ``local`` and ``scan`` backends (``kernel_mode="auto"``), held against a
    brute-force difference-form scan on the card; every kernel's launch
    counter must have risen during this phase;
-5. kernels vs plain versions at the main path's shapes, with CUDA-event
-   times for kernel, plain version and library call, and the bound;
-6. the card's answers against the CPU's on a small input (the CPU path is
+5. the disk path at the same data scale: a chunked build straight to a
+   format-v3 index directory with the bf16 codec (its tree held against
+   phase 4's), opened memory-mapped and served by ``ooc-scan`` and
+   ``ooc-local`` through ``QueryEngine`` at a 256 MiB budget, raw and bf16
+   streams, k=1 and k=10, with the threaded reader (and once with the
+   synchronous one); every answer is held against phase 4's in-memory
+   answers bit for bit, and every kernel of the path must have launched;
+6. kernels vs plain versions at the main path's shapes, with CUDA-event
+   times for kernel, plain version and library call, and the bound
+   (``decode_bf16_ed_matrix`` on a strided view of a real encoded block,
+   with its error against a float64 evaluation);
+7. the card's answers against the CPU's on a small input (the CPU path is
    the one the test suite holds against the JAX reference).
 
 The line before the last two is ``{"kernels": [...]}``; then the card's
@@ -30,8 +40,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -191,12 +204,14 @@ def reset_counters():
     klb.lb_sax_matrix.launches = 0
     ked.ed_matrix.launches = 0
     ked.ed_min.launches = 0
+    ked.decode_bf16_ed_matrix.launches = 0
 
 
 def read_counters() -> dict:
     from repro_torch.kernels import ed as ked, lb_sax as klb
     return {"lb_sax_matrix": klb.lb_sax_matrix.launches,
-            "ed_min": ked.ed_min.launches, "ed_matrix": ked.ed_matrix.launches}
+            "ed_min": ked.ed_min.launches, "ed_matrix": ked.ed_matrix.launches,
+            "decode_bf16_ed_matrix": ked.decode_bf16_ed_matrix.launches}
 
 
 def phase_main(num_series: int, num_queries: int):
@@ -277,7 +292,263 @@ def phase_main(num_series: int, num_queries: int):
     summary = {"build_s": build_s, "leaves": st["num_leaves"], "depth": st["max_depth"],
                "ms_per_query": {f"{a}_k{b}": v for (a, b), v in timing.items()},
                "peak_gib": peak}
-    return data, queries, local, launches, summary
+    return data, queries, local, launches, answers, summary
+
+
+DISK_BUDGET_MB = 256            # 131,072-row blocks of 256 float32 values
+FULL_SERIES = 1 << 22           # the full run's collection (--num-series default)
+
+
+def phase_disk(data, queries, local, answers, disk_dir: str | None,
+               profile: bool = False):
+    """The disk-resident path at phase 4's data scale: build to a format-v3
+    directory (bf16 codec), open it memory-mapped, and serve ``ooc-scan``
+    and ``ooc-local`` under a 256 MiB budget; the directory is removed at
+    the end, also on failure. Returns (the path's kernel launches, blocks of
+    its encoded, LSD and LRD files staged on the card for phase 6, summary).
+
+    At the full size phase 1 of ``ooc-local`` seeds 1,624 of the 1,635
+    leaves, and the rest must go through phase 3 (the LSD sidecar and the
+    LB_SAX kernel) in every ``ooc-local`` call. Only a short check (fewer
+    series) may seed every leaf and skip it."""
+    if disk_dir:
+        os.makedirs(disk_dir, exist_ok=True)
+        root = tempfile.mkdtemp(prefix="hercules-disk-", dir=disk_dir)
+    else:
+        root = tempfile.mkdtemp(prefix="hercules-disk-")
+    free = shutil.disk_usage(root).free
+    # lrd (4n bytes a row) + enc (2n + 4) + lsd (16), padding and the small
+    # files: about 6.5 GB at 2**22 x 256
+    need = int(data.shape[0] * (6 * data.shape[1] + 20) * 1.05) + (64 << 20)
+    log(f"[disk] index directory {root}: {free / 2**30:.1f} GiB free, the index "
+        f"needs about {need / 2**30:.1f} GiB")
+    try:
+        check(free >= need, f"{root} has too little free space (pass --disk-dir)")
+        return _disk_path(data, queries, local, answers, os.path.join(root, "idx"),
+                          profile)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        log(f"[disk] removed {root}")
+
+
+def _disk_path(data, queries, local, answers, path, profile):
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import EngineConfig, QueryEngine, make_disk_backend
+    from repro_torch.core.index import IndexConfig
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.core.tree import BuildConfig
+    from repro_torch.data.pipeline import ArrayChunkSource
+    from repro_torch.storage import build_index_to_disk, open_index
+
+    num, n = data.shape
+    need_sax = num >= FULL_SERIES
+    t0 = time.perf_counter()
+    host = data.cpu().numpy()
+    log(f"[disk] collection copied to the host in {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    manifest = build_index_to_disk(
+        ArrayChunkSource(host, 1 << 18), path,
+        IndexConfig(build=BuildConfig(leaf_capacity=4096)), codec="bf16",
+        prefetch="thread")
+    build_s = time.perf_counter() - t0
+    del host
+    b = manifest["extra"]["build"]
+    sizes = {name: os.path.getsize(os.path.join(path, name))
+             for name in ("lrd.npy", "enc.npy", "lsd.npy", "tree.npz", "layout.npz")}
+    log(f"[disk] built in {build_s:.2f}s: tree_seconds {b['tree_seconds']}, "
+        f"write_seconds {b['write_seconds']} (chunks of {b['chunk_size']} rows, "
+        f"{b['num_chunks']} chunks, prefetch {b['prefetch']}); file bytes {sizes}")
+    log("[disk] the files were just written, so the reads below may come from "
+        "the page cache rather than the disk")
+
+    summary = {"build_s": build_s, "tree_s": b["tree_seconds"],
+               "write_s": b["write_seconds"], "bytes": sizes, "calls": {}}
+    with open_index(path) as saved:
+        mem = local.index
+        for field in mem.tree._fields:
+            check(torch.equal(getattr(saved.tree, field), getattr(mem.tree, field).cpu()),
+                  f"disk build: tree field {field} differs from the in-memory build")
+        for field in ("perm", "leaf_start", "leaf_count"):
+            check(np.array_equal(saved.small[field],
+                                 getattr(mem.layout, field).cpu().numpy()),
+                  f"disk build: {field} differs from the in-memory build")
+        check(saved.n_pad == mem.layout.lrd.shape[0] and saved.codec == "bf16",
+              "disk build: n_pad or codec differs")
+        log(f"[disk] the disk build's tree, perm, leaf_start and leaf_count equal the "
+            f"in-memory build's; n_pad {saved.n_pad}, codec {saved.codec}")
+
+        runs = [(name, codec, k, "thread") for name in ("ooc-scan", "ooc-local")
+                for codec in ("raw", "bf16") for k in (1, 10)]
+        runs.append(("ooc-local", "bf16", 10, "sync"))
+        sax_read = False
+        reset_counters()
+        for name, codec, k, prefetch in runs:
+            backend = make_disk_backend(
+                name, saved, search=SearchConfig(codec=codec, prefetch=prefetch),
+                memory_budget_mb=DISK_BUDGET_MB)
+            eng = QueryEngine(backend)
+            before = read_counters()
+            t0 = time.perf_counter()
+            res = eng.knn(queries, k=k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = read_counters()
+            t = eng.telemetry().ooc
+            tag = f"{name} {codec} k={k} {prefetch}"
+            log(f"[disk] {tag}: {1e3 * dt / len(queries):.3f} ms/query, blocks "
+                f"{t.blocks}, rows_streamed {t.rows_streamed}, bytes_streamed "
+                f"{t.bytes_streamed}, read_seconds {t.read_seconds:.3f}, "
+                f"read_wait_seconds {t.read_wait_seconds:.3f}, overlap_blocks "
+                f"{t.overlap_blocks}, sax_rows_read {t.sax_rows_read}, "
+                f"codec_refine_rows {t.codec_refine_rows}, codec_fallbacks "
+                f"{t.codec_fallbacks}, launches "
+                f"{ {key: after[key] - before[key] for key in after} }")
+            summary["calls"][tag] = {"ms_per_query": 1e3 * dt / len(queries),
+                                     "rows_streamed": t.rows_streamed,
+                                     "codec_fallbacks": t.codec_fallbacks}
+            want = answers[("local" if name == "ooc-local" else "scan", k)]
+            check(torch.equal(res.dists, want.dists),
+                  f"{tag}: dists are not bit-identical to the in-memory "
+                  f"{'local' if name == 'ooc-local' else 'scan'}")
+            check(torch.equal(res.ids.long(), want.ids.long()),
+                  f"{tag}: ids differ from the in-memory answers "
+                  f"({int((res.ids.long() != want.ids.long()).sum())} entries)")
+            if codec == "bf16":
+                launched = after["decode_bf16_ed_matrix"] - before["decode_bf16_ed_matrix"]
+                # a fallback streams raw blocks too; those need no decode
+                need = t.blocks if t.codec_fallbacks == 0 else 1
+                check(launched >= need, f"{tag}: decode_bf16_ed_matrix launched "
+                                        f"{launched} times for {t.blocks} blocks")
+            if name == "ooc-local" and (need_sax or t.sax_rows_read):
+                # phase 3: the LSD sidecar goes through the LB_SAX kernel
+                check(t.sax_rows_read > 0, f"{tag}: no LSD rows were read")
+                check(after["lb_sax_matrix"] > before["lb_sax_matrix"],
+                      f"{tag}: lb_sax_matrix never launched")
+            sax_read = sax_read or t.sax_rows_read > 0
+        launches = read_counters()
+        log(f"[disk] kernel launches during the disk path: {launches}")
+        for kname, count in launches.items():
+            # a short check may seed every leaf: then phase 3, the LB_SAX
+            # pass, has nothing to filter
+            if kname != "lb_sax_matrix" or sax_read or need_sax:
+                check(count > 0, f"disk path: {kname} was never launched")
+        log("[disk] every answer equals the in-memory answers: ooc-local dists "
+            "bit-identical to local, ooc-scan dists bit-identical to scan, ids equal")
+        if profile:
+            for name, codec, k, bucket in (("ooc-scan", "bf16", 10, None),
+                                           ("ooc-scan", "raw", 1, None),
+                                           ("ooc-local", "raw", 1, None),
+                                           ("ooc-local", "raw", 1, len(queries))):
+                eng = QueryEngine(
+                    make_disk_backend(name, saved, memory_budget_mb=DISK_BUDGET_MB,
+                                      search=SearchConfig(codec=codec, prefetch="thread")),
+                    EngineConfig(bucket_sizes=(bucket,) if bucket else ()))
+                trace(f"{name} {codec} k={k}, {len(queries)} queries, bucket "
+                      f"{bucket or 'pow2'}", lambda: eng.knn(queries, k=k))
+                t = eng.telemetry().ooc
+                log(f"[profile]   rows_streamed {t.rows_streamed}, blocks {t.blocks}, "
+                    f"read_wait_seconds {t.read_wait_seconds:.3f}")
+        rows = min(num, 1 << 17)
+        enc = torch.from_numpy(np.array(saved._mapped("enc")[:rows])).cuda()
+        lsd = torch.from_numpy(np.array(saved._mapped("lsd")[:rows])).cuda()
+        lrd = torch.from_numpy(np.array(saved._mapped("lrd")[:rows])).cuda()
+    return launches, (enc, lsd, lrd), summary
+
+
+def phase_disk_kernels(queries, blocks, launches):
+    """``decode_bf16_ed_matrix`` at the out-of-core scan's shape (the query
+    bucket against one streamed 131,072-row bf16 block, read in place at its
+    row pitch), against its plain version, the library call and a float64
+    evaluation; then ``lb_sax_matrix`` and ``ed_min`` at the out-of-core
+    shapes, against their plain versions (times logged, for PERF.md)."""
+    import torch
+    from repro_torch.core import summaries as S
+    from repro_torch.kernels import ed as ked, lb_sax as klb, ref
+
+    enc, lsd, lrd = blocks
+    bucket = 1 << (queries.shape[0] - 1).bit_length()
+    qb = torch.cat([queries, queries.new_zeros((bucket - queries.shape[0],
+                                                queries.shape[1]))])
+    num, width = enc.shape
+    n = (width - 4) // 2
+    payload = enc[:, :-4]
+    check(payload.stride() == (width, 1), "the payload is not a strided view of enc")
+    bits = payload.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    decoded = ref.decode_bf16_ref(payload)
+    check(torch.equal(decoded, (bits << 16).view(torch.float32)),
+          "decode_bf16_ref: decoded values are not the exact bf16 widening")
+    del bits
+    got, sn = ked.decode_bf16_ed_matrix(qb, payload)
+    want = ref.decode_bf16_ed_matrix_ref(qb, payload)
+    err = assert_close(got, want, "float32", "decode_bf16_ed_matrix main shape")
+    q64, r64 = qb.double(), decoded.double()
+    exact = (q64 * q64).sum(1)[:, None] + (r64 * r64).sum(1)[None, :] - 2.0 * (q64 @ r64.T)
+    scale = (q64 * q64).sum(1)[:, None] + (r64 * r64).sum(1)[None, :]
+    ratio = float(((got.double() - exact).abs() / scale).max())
+    del exact, scale, r64
+    log(f"[timing] decode_bf16_ed_matrix soundness: max |d_kernel - d_f64| / "
+        f"(|q|^2 + |s^|^2) = {ratio:.3e} (limit 1e-5)")
+    check(ratio <= 1e-5, f"decode_bf16_ed_matrix: error ratio {ratio:.3e} > 1e-5")
+    lib = lambda: torch.cdist(qb, payload.view(torch.bfloat16).float(),
+                              compute_mode="use_mm_for_euclid_dist").square()
+    row = dict(
+        name="decode_bf16_ed_matrix", route="cuda",
+        source="src/repro_torch/kernels/csrc/ed.cu",
+        replaces="src/repro/kernels/ops.py:106",
+        shape=[bucket, num, n], launches=launches["decode_bf16_ed_matrix"],
+        max_abs_err=err, soundness_ratio=ratio,
+        ms=time_ms(lambda: ked.decode_bf16_ed_matrix(qb, payload),
+                   reps=20, warmup=2),
+        plain_ms=time_ms(lambda: ref.decode_bf16_ed_matrix_ref(qb, payload), reps=2),
+        library_ms=time_ms(lib, reps=10, warmup=2),
+        bytes=qb.numel() * 4 + payload.numel() + got.numel() * 4 + sn.numel() * 4,
+        ops=2 * bucket * num * n)
+    _bound(row)
+    log(f"[timing] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+    # the slice-1 kernels at the shapes the out-of-core path gives them,
+    # held against their plain versions there and timed
+    extra = []
+    q_paa = S.paa(qb, lsd.shape[1])
+    got = klb.lb_sax_matrix(q_paa, lsd, n)
+    want = ref.lb_sax_matrix_ref(q_paa, lsd, n)
+    assert_close(got, want, "float32", "lb_sax ooc shape")
+    check(torch.equal(got, want), "lb_sax ooc shape: bits differ")
+    del got, want
+    extra.append(dict(name="lb_sax_matrix", shape=[bucket, lsd.shape[0], lsd.shape[1]],
+                      ms=time_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=20,
+                                 warmup=2),
+                      bytes=q_paa.numel() * 4 + lsd.numel() + bucket * lsd.shape[0] * 4,
+                      ops=bucket * lsd.shape[0] * (6 * lsd.shape[1] + 1)))
+    dmin, amin = ked.ed_min(qb, lrd, valid_n=lrd.shape[0])
+    d_ref = ref.ed_matrix_ref(qb, lrd)
+    want_d, want_a = torch.min(d_ref, dim=1)
+    assert_close(dmin, want_d, "float32", "ed_min ooc shape")
+    dec = decisive_rows(d_ref)
+    dec[queries.shape[0]:] = False          # bucket padding rows tie everywhere
+    check(torch.equal(amin[dec].long(), want_a[dec]), "ed_min ooc shape: argmin differs")
+    del d_ref
+    extra.append(dict(name="ed_min", shape=[bucket, lrd.shape[0], n],
+                      ms=time_ms(lambda: ked.ed_min(qb, lrd, valid_n=lrd.shape[0]),
+                                 reps=20, warmup=2),
+                      bytes=(qb.numel() + lrd.numel()) * 4 + bucket * 8,
+                      ops=2 * bucket * lrd.shape[0] * n))
+    for r in extra:
+        _bound(r)
+        log(f"[timing] ooc shape {r['name']} {r['shape']}: agrees with its plain "
+            f"version; kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return row
+
+
+def _bound(r: dict) -> None:
+    t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = r["ops"] / FP32_FLOPS * 1e3
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_kernel_timing(data, queries, local, launches):
@@ -349,10 +620,7 @@ def phase_kernel_timing(data, queries, local, launches):
         ops=2 * bucket * blk.shape[0] * n))
 
     for r in rows:
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / FP32_FLOPS * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        _bound(r)
         log(f"[timing] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} B, {r['ops']} ops)")
@@ -364,8 +632,6 @@ def phase_profile(data, queries, local):
     torch.profiler and report wall time, summed device-kernel time (one
     stream, so kernels do not overlap), the device idle share and the
     operators that hold the device longest."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import QueryEngine, make_backend
 
     q = queries[:16]
@@ -374,25 +640,39 @@ def phase_profile(data, queries, local):
                              ("scan", make_backend("scan", data), 10)):
         eng = QueryEngine(backend)
         eng.knn(q, k=k)
+        trace(f"{name} k={k}, 16 queries", lambda: eng.knn(q, k=k))
+
+
+def trace(label: str, run) -> None:
+    """Trace one call of ``run`` with torch.profiler: wall time, summed
+    device time of the kernels (one compute stream, so they do not overlap)
+    and of the copies (a side stream; they may overlap the kernels), the
+    device idle share and the operations that hold the device longest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.knn(q, k=k)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-        by_name: dict = {}
-        for e in kernels:
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        log(f"[profile] {name} k={k}, 16 queries: wall {wall_ms:.2f} ms, device busy "
-            f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-            f"{len(kernels)} kernel launches")
-        for kname, (t, c) in top:
-            log(f"[profile]   {t:9.3f} ms {c:6d}x  {kname[:110]}")
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in events if "memcpy" in e.name.lower()]
+    kernels = [e for e in events if "memcpy" not in e.name.lower()]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    copy_ms = sum(e.time_range.elapsed_us() for e in copies) / 1e3
+    by_name: dict = {}
+    for e in events:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[profile] {label}: wall {wall_ms:.2f} ms, kernels busy {busy_ms:.2f} ms, "
+        f"copies {copy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+        f"{len(kernels)} kernel launches, {len(copies)} copies")
+    for kname, (t, c) in top:
+        log(f"[profile]   {t:9.3f} ms {c:6d}x  {kname[:110]}")
 
 
 def phase_cpu_agreement():
@@ -437,10 +717,13 @@ def phase_cpu_agreement():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--num-series", type=int, default=1 << 22)
+    ap.add_argument("--num-series", type=int, default=FULL_SERIES)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--profile", action="store_true",
                     help="also trace 16 queries per backend with torch.profiler")
+    ap.add_argument("--disk-dir", default=None,
+                    help="directory for the disk phase's index (default: a new "
+                         "temporary directory); removed at the end")
     args = ap.parse_args(argv)
 
     import torch
@@ -458,11 +741,16 @@ def main(argv=None) -> int:
     name, smi = phase_device()
     phase_build()
     phase_adversarial()
-    data, queries, local, launches, summary = phase_main(args.num_series, args.queries)
+    data, queries, local, launches, answers, summary = phase_main(args.num_series,
+                                                                  args.queries)
+    disk_launches, blocks, summary["disk"] = phase_disk(data, queries, local, answers,
+                                                        args.disk_dir, args.profile)
     rows = phase_kernel_timing(data, queries, local, launches)
+    rows.append(phase_disk_kernels(queries, blocks, disk_launches))
+    del blocks
     if args.profile:
         phase_profile(data, queries, local)
-    del data, queries, local
+    del data, queries, local, answers
     torch.cuda.empty_cache()
     phase_cpu_agreement()
     log(f"[main] summary {json.dumps(summary)}")

@@ -30,6 +30,15 @@ from repro_torch.device import resolve_device
 _REFERENCE_KERNEL_MODES = {"pallas": "auto", "interpret": "auto"}
 
 
+def reference_search_config(search: dict) -> dict:
+    """A saved ``SearchConfig`` dict of either package with the reference's
+    kernel modes mapped to the port's."""
+    search = dict(search)
+    mode = search.get("kernel_mode", "auto")
+    search["kernel_mode"] = _REFERENCE_KERNEL_MODES.get(mode, mode)
+    return search
+
+
 @dataclasses.dataclass(frozen=True)
 class IndexConfig:
     build: BuildConfig = dataclasses.field(default_factory=BuildConfig)
@@ -90,11 +99,9 @@ class HerculesIndex:
         lay = {name: _as_tensor(arrays[f"layout.{name}"], dev)
                for name in LAYOUT_TENSORS}
         lay.update({name: int(meta["layout_static"][name]) for name in LAYOUT_STATIC})
-        search = dict(meta["search"])
-        mode = search.get("kernel_mode", "auto")
-        search["kernel_mode"] = _REFERENCE_KERNEL_MODES.get(mode, mode)
         config = IndexConfig(build=BuildConfig(**meta["build"]),
-                             search=SearchConfig(**search),
+                             search=SearchConfig(**reference_search_config(
+                                 meta["search"])),
                              sax_segments=int(meta["sax_segments"]))
         return cls(tree, HerculesLayout(**lay), config, int(meta["max_depth"]))
 

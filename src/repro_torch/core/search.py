@@ -31,12 +31,6 @@ from repro_torch.core.tree import HerculesTree, route_to_leaf
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.compat import KERNEL_MODES, resolve_kernel_mode
 
-# Valid ``prefetch`` and ``codec`` values, copied from the reference's
-# ``data/pipeline.py`` and ``storage/codecs.py``; the port's pipeline and
-# storage modules take them over when they are ported.
-PREFETCH_MODES = ("sync", "thread")
-CODEC_CHOICES = ("auto", "raw", "bf16", "sax-residual")
-
 INF = float("inf")
 _F32 = torch.float32
 _I32 = torch.int32
@@ -91,9 +85,13 @@ class SearchConfig:
         if self.kernel_mode not in KERNEL_MODES:
             raise ValueError(f"kernel_mode={self.kernel_mode!r}; expected "
                              f"one of {KERNEL_MODES}")
+        # the pipeline and the codec registry own their value sets (imported
+        # here, not at module level: both import this module's package)
+        from repro_torch.data.pipeline import PREFETCH_MODES
         if self.prefetch not in PREFETCH_MODES:
             raise ValueError(f"prefetch={self.prefetch!r}; expected one of "
                              f"{PREFETCH_MODES}")
+        from repro_torch.storage.codecs import CODEC_CHOICES
         if self.codec not in CODEC_CHOICES:
             raise ValueError(f"codec={self.codec!r}; expected one of "
                              f"{CODEC_CHOICES}")
@@ -160,12 +158,13 @@ def _row_dists(q: torch.Tensor, rows: torch.Tensor,
 
 
 def _query_seg_stats(qp, qp2, endpoints):
-    """Query stats under many segmentations. qp/qp2 (n+1,), endpoints (L, M)."""
+    """Query stats under many segmentations. qp/qp2 (..., n+1), endpoints
+    (L, M); returns (..., L, M) means and stds."""
     ep = endpoints.long()
     st = torch.cat([ep.new_zeros((ep.shape[0], 1)), ep[:, :-1]], dim=1)
     lens = (ep - st).to(_F32).clamp_min(1.0)
-    s1 = qp[ep] - qp[st]
-    s2 = qp2[ep] - qp2[st]
+    s1 = qp[..., ep] - qp[..., st]
+    s2 = qp2[..., ep] - qp2[..., st]
     mean = s1 / lens
     var = (s2 / lens - mean * mean).clamp_min(0.0)
     empty = (ep - st) <= 0

@@ -15,7 +15,10 @@ Two JAX idioms have no torch twin and are rewritten here:
   initialised to the identities +inf/-inf, which is what a segment with no
   members reports in the reference too.
 
-``build_tree_chunked`` (the out-of-core build) comes with the storage slice.
+:func:`build_tree_chunked` (the out-of-core build) streams the collection
+in chunks and builds the same tree bit for bit: every cross-series
+reduction of a round is a count, a minimum or a maximum, and every
+per-series statistic comes from that series' own prefix sums.
 """
 from __future__ import annotations
 
@@ -337,45 +340,80 @@ def _build_round(tree: HerculesTree, node_of: torch.Tensor,
     return tree, node_of, num_split
 
 
+def _merge_round_stats(a: RoundStats, b: RoundStats) -> RoundStats:
+    """Exact merge of two chunks' reductions (sum / min / max per field)."""
+    merged = [a.counts + b.counts]
+    for name in RoundStats._fields[1:]:
+        va, vb = getattr(a, name), getattr(b, name)
+        merged.append(torch.minimum(va, vb) if name.endswith("_mn")
+                      else torch.maximum(va, vb))
+    return RoundStats(*merged)
+
+
 _SYN_BIG = 3.0e38
 
 
-def _synopsis_level(tree: HerculesTree, anc: torch.Tensor,
-                    p: torch.Tensor, p2: torch.Tensor):
-    """Fold every series' stats (under ancestor ``anc``'s segmentation) into
-    that ancestor's synopsis, then step ancestors one level up."""
+def _synopsis_chunk_minmax(tree: HerculesTree, anc: torch.Tensor,
+                           p: torch.Tensor, p2: torch.Tensor):
+    """One chunk's contribution to the current level's synopsis fold:
+    (mu_mn, mu_mx, sd_mn, sd_mx), each (max_nodes, M); chunks merge exactly
+    through :func:`_merge_synopsis_minmax`."""
     max_nodes = tree.max_nodes
     ep = tree.endpoints[anc.clamp_min(0).long()]
     means, stds = S.segment_stats_from_prefix(p, p2, ep)
     ids = torch.where(anc >= 0, anc, max_nodes)
     mu_mn, mu_mx = _seg_minmax(means, ids, max_nodes + 1)
     sd_mn, sd_mx = _seg_minmax(stds, ids, max_nodes + 1)
+    return (mu_mn[:max_nodes], mu_mx[:max_nodes],
+            sd_mn[:max_nodes], sd_mx[:max_nodes])
+
+
+def _merge_synopsis_minmax(a, b):
+    return (torch.minimum(a[0], b[0]), torch.maximum(a[1], b[1]),
+            torch.minimum(a[2], b[2]), torch.maximum(a[3], b[3]))
+
+
+def _synopsis_fold(tree: HerculesTree, mm) -> HerculesTree:
+    """Fold merged (mu_mn, mu_mx, sd_mn, sd_mx) into the running synopsis;
+    untouched slots keep their +-big start values."""
     old = tree.synopsis
-    syn = torch.stack([torch.minimum(old[..., 0], mu_mn[:max_nodes]),
-                       torch.maximum(old[..., 1], mu_mx[:max_nodes]),
-                       torch.minimum(old[..., 2], sd_mn[:max_nodes]),
-                       torch.maximum(old[..., 3], sd_mx[:max_nodes])], dim=-1)
-    tree = tree._replace(synopsis=syn)
-    anc = torch.where(anc >= 0, tree.parent[anc.clamp_min(0).long()], anc)
-    return tree, anc
+    syn = torch.stack([torch.minimum(old[..., 0], mm[0]),
+                       torch.maximum(old[..., 1], mm[1]),
+                       torch.minimum(old[..., 2], mm[2]),
+                       torch.maximum(old[..., 3], mm[3])], dim=-1)
+    return tree._replace(synopsis=syn)
+
+
+def _parents(tree: HerculesTree, anc: torch.Tensor) -> torch.Tensor:
+    """Step every ancestor id one level up (-1 stays -1)."""
+    return torch.where(anc >= 0, tree.parent[anc.clamp_min(0).long()], anc)
+
+
+def _synopsis_start(tree: HerculesTree) -> HerculesTree:
+    shape = tree.synopsis.shape[:-1]
+    big = torch.full(shape, _SYN_BIG, dtype=_F32, device=tree.synopsis.device)
+    return tree._replace(synopsis=torch.stack([big, -big, big, -big], dim=-1))
+
+
+def _synopsis_finish(tree: HerculesTree) -> HerculesTree:
+    """Zero out untouched (empty) nodes so downstream arithmetic stays
+    finite."""
+    untouched = tree.synopsis[..., 0] >= _SYN_BIG
+    zero = torch.zeros((), dtype=_F32, device=tree.synopsis.device)
+    return tree._replace(synopsis=torch.where(untouched[..., None], zero,
+                                              tree.synopsis))
 
 
 def compute_synopses(tree: HerculesTree, node_of: torch.Tensor,
                      p: torch.Tensor, p2: torch.Tensor, max_depth: int) -> HerculesTree:
     """Exact synopses for every node (leaf + internal), one tree level per
     step: every series folds its per-segment stats into each ancestor."""
-    shape = tree.synopsis.shape[:-1]
-    dev = tree.synopsis.device
-    big = torch.full(shape, _SYN_BIG, dtype=_F32, device=dev)
-    tree = tree._replace(synopsis=torch.stack([big, -big, big, -big], dim=-1))
+    tree = _synopsis_start(tree)
     anc = node_of
     for _ in range(max_depth + 1):
-        tree, anc = _synopsis_level(tree, anc, p, p2)
-    # zero out untouched (empty) nodes so downstream arithmetic stays finite
-    untouched = tree.synopsis[..., 0] >= _SYN_BIG
-    syn = torch.where(untouched[..., None],
-                      torch.zeros((), dtype=_F32, device=dev), tree.synopsis)
-    return tree._replace(synopsis=syn)
+        tree = _synopsis_fold(tree, _synopsis_chunk_minmax(tree, anc, p, p2))
+        anc = _parents(tree, anc)
+    return _synopsis_finish(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -407,9 +445,91 @@ def build_tree(data: torch.Tensor, config: BuildConfig
         if int(n_split) == 0:
             break
 
-    live = torch.arange(max_nodes, device=dev) < tree.num_nodes
-    max_depth = int(torch.where(live, tree.depth, 0).max())
-    tree = compute_synopses(tree, node_of, p, p2, max_depth)
+    tree = compute_synopses(tree, node_of, p, p2, _max_depth(tree))
+    return tree, node_of
+
+
+def _max_depth(tree: HerculesTree) -> int:
+    live = torch.arange(tree.max_nodes, device=tree.depth.device) < tree.num_nodes
+    return int(torch.where(live, tree.depth, 0).max())
+
+
+# ---------------------------------------------------------------------------
+# Chunked (out-of-core) build
+# ---------------------------------------------------------------------------
+
+def compute_synopses_chunked(tree: HerculesTree, node_of: torch.Tensor,
+                             source, max_depth: int, prefetch: str = "sync"
+                             ) -> HerculesTree:
+    """Chunk-streamed :func:`compute_synopses` on the tree's device: the
+    same synopses bit for bit, without holding the collection or its prefix
+    sums on the device."""
+    from repro_torch.data.pipeline import iter_device_chunks
+
+    dev = tree.synopsis.device
+    tree = _synopsis_start(tree)
+    anc = node_of
+    for _ in range(max_depth + 1):
+        mm = None
+        for start, chunk in iter_device_chunks(source, dev, prefetch=prefetch):
+            p, p2 = S.prefix_sums(chunk)
+            cm = _synopsis_chunk_minmax(tree, anc[start:start + chunk.shape[0]],
+                                        p, p2)
+            mm = cm if mm is None else _merge_synopsis_minmax(mm, cm)
+        tree = _synopsis_fold(tree, mm)
+        anc = _parents(tree, anc)
+    return _synopsis_finish(tree)
+
+
+def build_tree_chunked(source, config: BuildConfig, prefetch: str = "sync",
+                       device: str | torch.device | None = None
+                       ) -> tuple[HerculesTree, torch.Tensor]:
+    """Out-of-core :func:`build_tree`: stream ``source`` (a
+    :class:`repro_torch.data.pipeline.ChunkSource`) in chunks to ``device``
+    (default: the CUDA device).
+
+    Each round makes two streamed passes: one accumulates the
+    :class:`RoundStats` (merged exactly by sum / min / max), one re-routes
+    the members. Device residency is two chunks in flight plus the tree
+    state and the (N,) node assignment, never the (N, n) collection. The
+    tree equals :func:`build_tree`'s on the whole collection bit for bit.
+    Prefix sums are recomputed per chunk per pass instead of being kept:
+    the out-of-core trade of operations for memory.
+    """
+    from repro_torch.data.pipeline import iter_device_chunks
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    num, n = source.num_series, source.series_len
+    max_nodes = config.resolve_max_nodes(num)
+    if config.init_segments > config.max_segments:
+        raise ValueError("init_segments > max_segments")
+    tree = _empty_tree(max_nodes, config.max_segments, n, config.init_segments, dev)
+    node_of = torch.zeros((num,), dtype=_I32, device=dev)
+    count = tree.count.clone()
+    count[0] = num
+    tree = tree._replace(count=count)
+
+    for _ in range(config.max_rounds):
+        stats = None
+        for start, chunk in iter_device_chunks(source, dev, prefetch=prefetch):
+            p, p2 = S.prefix_sums(chunk)
+            cs = _round_stats(tree, node_of[start:start + chunk.shape[0]], p, p2)
+            stats = cs if stats is None else _merge_round_stats(stats, cs)
+        tree, n_split = _round_decide(tree, stats, tau=config.leaf_capacity)
+        if int(n_split) == 0:
+            break
+        parts = []
+        for start, chunk in iter_device_chunks(source, dev, prefetch=prefetch):
+            p, p2 = S.prefix_sums(chunk)
+            parts.append(_route_members(tree, node_of[start:start + chunk.shape[0]],
+                                        p, p2))
+        node_of = torch.cat(parts)
+        counts = _leaf_member_counts(node_of, max_nodes)
+        tree = tree._replace(count=torch.where(tree.is_leaf, counts, tree.count))
+
+    tree = compute_synopses_chunked(tree, node_of, source, _max_depth(tree),
+                                    prefetch=prefetch)
     return tree, node_of
 
 

@@ -116,6 +116,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.ed_min_f32, lib.ed_min_bf16):
             fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
             fn.restype = _I
+        lib.decode_bf16_ed_matrix.argtypes = [_P, _P, ctypes.c_longlong, _P, _P,
+                                              _I, _I, _I, _P]
+        lib.decode_bf16_ed_matrix.restype = _I
 
 
 def check(err: int, what: str) -> None:

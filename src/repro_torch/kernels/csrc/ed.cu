@@ -1,8 +1,10 @@
-// Squared-Euclidean-distance scans for Hopper (sm_90a): ed_matrix and the
-// fused 1-NN ed_min.
+// Squared-Euclidean-distance scans for Hopper (sm_90a): ed_matrix, the
+// fused 1-NN ed_min, and the fused bf16 decode + ED decode_bf16_ed_matrix.
 //
-// Replaces: src/repro/kernels/ed.py::ed_matrix (_ed_matrix_kernel) and
-// src/repro/kernels/ed.py::ed_min (_ed_min_kernel).
+// Replaces: src/repro/kernels/ed.py::ed_matrix (_ed_matrix_kernel),
+// src/repro/kernels/ed.py::ed_min (_ed_min_kernel) and
+// src/repro/kernels/ops.py::decode_bf16_ed_matrix (the bf16 payload bitcast
+// fed to _ed_matrix_kernel).
 //
 // Bound on this card: at the scan's shapes (a bucket of 128 queries against
 // millions of length-256 series) both kernels do 2*Q*N*n float32 operations
@@ -30,6 +32,18 @@
 // smallest word is the smallest distance and, among equal distances, the
 // lowest index; the word starts at (+inf, 0), so an all-inf row reports
 // index 0. Columns at or past valid_n are +inf.
+//
+// decode_bf16_ed_matrix reads the bf16 codec's rows in place: row r of the
+// encoded block starts at byte r * pitch (pitch = 2n + 4, the payload then
+// the row's float32 error bound), so the rows are neither contiguous nor
+// 16-byte aligned (516 bytes for n = 256; only 2-byte aligned for odd n).
+// The loader reads one 16-bit element at a time and widens it exactly
+// (bits << 16); decoded rows exist only in shared memory, never in device
+// memory, which is the point of the fusion. At the out-of-core scan's shape
+// (128 queries x 131,072 rows x 256) it is bound by float32 FMA throughput
+// like ed_matrix (2*Q*B*n operations on 2*B*n + 4*Q*B bytes). The
+// arithmetic is dot_tile's full float32 FMA accumulation (no TF32), whose
+// rounding error the out-of-core bounds' slack must cover.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +60,26 @@ constexpr int TN = 4;   // series columns per thread: tx + 16*j
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// Series loaders: element k of series row r, widened to float32.
+template <typename T>
+struct DenseRows {   // (N, n) row-major float32 or bfloat16
+  const T* s;
+  int n;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    return to_f32(s[(size_t)r * n + k]);
+  }
+};
+
+struct Bf16Payload {   // little-endian bfloat16 rows at a byte pitch
+  const unsigned char* base;
+  long long pitch;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    const uint16_t bits =
+        *reinterpret_cast<const uint16_t*>(base + (size_t)r * pitch + 2 * (size_t)k);
+    return __uint_as_float((uint32_t)bits << 16);
+  }
+};
+
 struct TileSmem {
   float q[BK][BQ + 1];
   float s[BK][BN + 1];
@@ -55,9 +89,9 @@ struct TileSmem {
 
 // acc[i][j] = q_row . s_row and the two squared norms for this thread's
 // 4x4 sub-tile of the (q0, s0) block tile.
-template <typename T>
+template <typename Rows>
 __device__ __forceinline__ void dot_tile(const float* __restrict__ q,
-                                         const T* __restrict__ s, int num_q,
+                                         const Rows s, int num_q,
                                          int num_s, int n, int q0, int s0,
                                          TileSmem& sm, float (&acc)[TM][TN],
                                          float (&qn)[TM], float (&sn)[TN]) {
@@ -80,7 +114,7 @@ __device__ __forceinline__ void dot_tile(const float* __restrict__ q,
       const int gq = q0 + r;
       const int gs = s0 + r;
       sm.q[kk][r] = (gq < num_q && gk < n) ? q[(size_t)gq * n + gk] : 0.0f;
-      sm.s[kk][r] = (gs < num_s && gk < n) ? to_f32(s[(size_t)gs * n + gk]) : 0.0f;
+      sm.s[kk][r] = (gs < num_s && gk < n) ? s(gs, gk) : 0.0f;
     }
     __syncthreads();
     if (tid < BQ) {
@@ -117,15 +151,22 @@ __device__ __forceinline__ void dot_tile(const float* __restrict__ q,
   for (int j = 0; j < TN; ++j) sn[j] = sm.sn[tx + 16 * j];
 }
 
-template <typename T>
+// kRowNorms: also write the series' squared norms as this kernel computed
+// them (decode_bf16_ed_matrix's second output).
+template <typename Rows, bool kRowNorms>
 __global__ void __launch_bounds__(THREADS)
-ed_matrix_kernel(const float* __restrict__ q, const T* __restrict__ s,
-                 float* __restrict__ out, int num_q, int num_s, int n) {
+ed_matrix_kernel(const float* __restrict__ q, const Rows s,
+                 float* __restrict__ out, float* __restrict__ sn_out, int num_q,
+                 int num_s, int n) {
   __shared__ TileSmem sm;
   const int q0 = blockIdx.y * BQ;
   const int s0 = blockIdx.x * BN;
   float acc[TM][TN], qn[TM], sn[TN];
-  dot_tile<T>(q, s, num_q, num_s, n, q0, s0, sm, acc, qn, sn);
+  dot_tile<Rows>(q, s, num_q, num_s, n, q0, s0, sm, acc, qn, sn);
+  if constexpr (kRowNorms) {
+    if (blockIdx.y == 0 && threadIdx.x < BN && s0 + (int)threadIdx.x < num_s)
+      sn_out[s0 + threadIdx.x] = sm.sn[threadIdx.x];
+  }
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 #pragma unroll
@@ -165,7 +206,8 @@ ed_min_kernel(const float* __restrict__ q, const T* __restrict__ s,
   const int q0 = blockIdx.y * BQ;
   const int s0 = blockIdx.x * BN;
   float acc[TM][TN], qn[TM], sn[TN];
-  dot_tile<T>(q, s, num_q, num_s, n, q0, s0, sm, acc, qn, sn);
+  dot_tile<DenseRows<T>>(q, DenseRows<T>{s, n}, num_q, num_s, n, q0, s0, sm, acc,
+                         qn, sn);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const float inf = __int_as_float(0x7F800000);
@@ -219,12 +261,13 @@ dim3 tile_grid(int num_q, int num_s) {
   return dim3((unsigned)((num_s + BN - 1) / BN), (unsigned)((num_q + BQ - 1) / BQ));
 }
 
-template <typename T>
-int launch_ed_matrix(const float* q, const T* s, float* out, int num_q, int num_s,
-                     int n, void* stream) {
+template <typename Rows, bool kRowNorms>
+int launch_ed_matrix(const float* q, const Rows s, float* out, float* sn_out, int num_q,
+                     int num_s, int n, void* stream) {
   if (num_q <= 0 || num_s <= 0) return (int)cudaSuccess;
-  ed_matrix_kernel<T><<<tile_grid(num_q, num_s), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(q, s, out, num_q, num_s, n);
+  ed_matrix_kernel<Rows, kRowNorms><<<tile_grid(num_q, num_s), THREADS, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      q, s, out, sn_out, num_q, num_s, n);
   return (int)cudaGetLastError();
 }
 
@@ -248,13 +291,27 @@ int launch_ed_min(const float* q, const T* s, unsigned long long* scratch,
 // (Q, n) float32 queries x (N, n) series -> (Q, N) float32 squared ED.
 extern "C" int ed_matrix_f32(const float* q, const float* s, float* out, int num_q,
                              int num_s, int n, void* stream) {
-  return launch_ed_matrix<float>(q, s, out, num_q, num_s, n, stream);
+  return launch_ed_matrix<DenseRows<float>, false>(q, DenseRows<float>{s, n}, out, nullptr,
+                                                   num_q, num_s, n, stream);
 }
 
 extern "C" int ed_matrix_bf16(const float* q, const void* s, float* out, int num_q,
                               int num_s, int n, void* stream) {
-  return launch_ed_matrix<__nv_bfloat16>(
-      q, static_cast<const __nv_bfloat16*>(s), out, num_q, num_s, n, stream);
+  return launch_ed_matrix<DenseRows<__nv_bfloat16>, false>(
+      q, DenseRows<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(s), n}, out, nullptr,
+      num_q, num_s, n, stream);
+}
+
+// (Q, n) float32 queries x B bf16 rows of n elements, row r at byte
+// r * pitch of `payload` -> (Q, B) float32 squared ED against the decoded
+// rows, and the (B,) squared norms of the decoded rows into sn_out. pitch is
+// even and >= 2n; payload is 2-byte aligned.
+extern "C" int decode_bf16_ed_matrix(const float* q, const void* payload, long long pitch,
+                                     float* out, float* sn_out, int num_q, int num_s,
+                                     int n, void* stream) {
+  return launch_ed_matrix<Bf16Payload, true>(
+      q, Bf16Payload{static_cast<const unsigned char*>(payload), pitch}, out, sn_out,
+      num_q, num_s, n, stream);
 }
 
 // Fused 1-NN: (Q,) float32 min squared ED and (Q,) int32 argmin over the

@@ -1,11 +1,14 @@
 """Launch wrappers of the hand-written squared-ED kernels (``csrc/ed.cu``;
-replace ``repro/kernels/ed.py::ed_matrix`` and ``::ed_min``).
+replace ``repro/kernels/ed.py::ed_matrix``, ``::ed_min`` and
+``repro/kernels/ops.py::decode_bf16_ed_matrix``).
 
 CUDA tensors only: the plain versions are ``kernels/ref.py`` and
 ``kernels/ops.py`` chooses between them. Queries are float32; series are
-float32 or bfloat16 (upcast in registers). The kernels mask their own
-ragged edges, so nothing is padded here. ``ed_matrix.launches`` and
-``ed_min.launches`` count kernel launches.
+float32 or bfloat16 (upcast in registers), or for
+:func:`decode_bf16_ed_matrix` the bf16 codec's uint8 payload, read in place
+at its row pitch. The kernels mask their own ragged edges, so nothing is
+padded here. ``ed_matrix.launches``, ``ed_min.launches`` and
+``decode_bf16_ed_matrix.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -73,5 +76,52 @@ def ed_min(queries: torch.Tensor, series: torch.Tensor,
     return dmin, amin
 
 
+def decode_bf16_ed_matrix(queries: torch.Tensor,
+                          payload: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, n) float32 x (B, 2n) uint8 bf16 payload -> ((Q, B) float32 squared
+    ED against the decoded rows, (B,) squared norms of the decoded rows that
+    the distances used), on the CUDA device.
+
+    ``payload`` may be any view with a unit inner stride and an even row
+    pitch of at least 2n bytes, such as ``enc[:, :-4]`` of a bf16-encoded
+    block (pitch 2n + 4): the kernel reads it in place, and nothing here
+    copies or widens it."""
+    if queries.device.type != "cuda" or payload.device != queries.device:
+        raise ValueError("decode_bf16_ed_matrix kernel needs both tensors on one "
+                         f"CUDA device; got {queries.device} and {payload.device}")
+    if queries.dtype != torch.float32 or payload.dtype != torch.uint8:
+        raise TypeError("decode_bf16_ed_matrix takes float32 queries and a uint8 "
+                        f"payload; got {queries.dtype} and {payload.dtype}")
+    if (queries.ndim != 2 or payload.ndim != 2
+            or payload.shape[1] != 2 * queries.shape[1]):
+        raise ValueError(f"decode_bf16_ed_matrix shapes {tuple(queries.shape)} x "
+                         f"{tuple(payload.shape)}; expected (Q, n) x (B, 2n)")
+    if not queries.is_contiguous():
+        raise ValueError("decode_bf16_ed_matrix kernel takes contiguous queries")
+    (qn, n), num = queries.shape, payload.shape[0]
+    pitch = payload.stride(0) if num > 1 else 2 * n
+    if (payload.stride(1) != 1 and n > 0) or pitch % 2 or pitch < 2 * n:
+        raise ValueError(f"decode_bf16_ed_matrix needs a unit inner stride and an "
+                         f"even row pitch >= {2 * n} bytes; got strides "
+                         f"{payload.stride()}")
+    if payload.data_ptr() % 2:
+        raise ValueError("decode_bf16_ed_matrix needs a 2-byte aligned payload")
+    if max(qn, num) >= 2**31:
+        raise ValueError("decode_bf16_ed_matrix kernel takes fewer than 2**31 rows")
+    out = torch.empty((qn, num), dtype=torch.float32, device=queries.device)
+    sn = torch.empty((num,), dtype=torch.float32, device=queries.device)
+    if num and (qn == 0 or n == 0):
+        raise ValueError("decode_bf16_ed_matrix kernel takes Q >= 1 and n >= 1")
+    if num:
+        err = _build.library("ed").decode_bf16_ed_matrix(
+            queries.data_ptr(), payload.data_ptr(), pitch, out.data_ptr(),
+            sn.data_ptr(), qn, num, n,
+            torch.cuda.current_stream(queries.device).cuda_stream)
+        _build.check(err, "decode_bf16_ed_matrix")
+        decode_bf16_ed_matrix.launches += 1
+    return out, sn
+
+
 ed_matrix.launches = 0
 ed_min.launches = 0
+decode_bf16_ed_matrix.launches = 0

@@ -33,6 +33,21 @@ def ed_matrix(queries: torch.Tensor, series: torch.Tensor, *,
     return _ed.ed_matrix(queries.to(torch.float32).contiguous(), series.contiguous())
 
 
+def decode_bf16_ed_matrix(queries: torch.Tensor, payload: torch.Tensor, *,
+                          mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused bf16 decode + squared ED: (Q, n) x (B, 2n) uint8 -> ((Q, B)
+    squared ED, (B,) squared norms of the decoded rows).
+
+    ``payload`` is the byte image of bfloat16 rows (the prefix of bf16-codec
+    rows, a strided view is fine). The kernel reads it in place and widens
+    each element as it stages a tile, so decoded float32 rows never reach
+    device memory; the plain version decodes, then sums directly."""
+    if resolve_kernel_mode(mode, _device(queries, payload)) == "ref":
+        rows = _ref.decode_bf16_ref(payload)
+        return _ref.ed_matrix_ref(queries, rows), S.fixed_order_sum(rows * rows)
+    return _ed.decode_bf16_ed_matrix(queries.to(torch.float32).contiguous(), payload)
+
+
 def ed_min(queries: torch.Tensor, series: torch.Tensor, *,
            valid_n: int | None = None,
            mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:

@@ -46,6 +46,23 @@ def ed_min_ref(queries: torch.Tensor, series: torch.Tensor,
     return dmin, amin.to(torch.int32)
 
 
+def decode_bf16_ref(payload: torch.Tensor) -> torch.Tensor:
+    """(B, 2n) uint8 bfloat16 payload -> (B, n) float32 rows.
+
+    The payload is the byte image of little-endian bfloat16 rows (the bf16
+    codec's row prefix, possibly a strided view); the widening is exact."""
+    num, twon = payload.shape
+    return payload.contiguous().view(torch.bfloat16).reshape(num, twon // 2) \
+        .to(torch.float32)
+
+
+def decode_bf16_ed_matrix_ref(queries: torch.Tensor,
+                              payload: torch.Tensor) -> torch.Tensor:
+    """Fused decode + ED: (Q, n) x (B, 2n) uint8 -> (Q, B) float32 squared
+    ED against the decoded rows, direct-sum form."""
+    return ed_matrix_ref(queries, decode_bf16_ref(payload))
+
+
 def lb_sax_matrix_ref(q_paa: torch.Tensor, codes: torch.Tensor, series_len: int,
                       alphabet: int = S.SAX_ALPHABET) -> torch.Tensor:
     """(Q, m) PAA x (N, m) uint8 codes -> (Q, N) squared LB_SAX (MINDIST)."""

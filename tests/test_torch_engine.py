@@ -23,6 +23,7 @@ from repro_torch.core.search import SearchConfig
 from repro_torch.core.tree import BuildConfig
 from repro_torch.data import synthetic
 from repro_torch.launch import search as cli
+from _torch_threads import one_torch_thread  # noqa: F401
 
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -43,7 +44,7 @@ def setup():
     icfg = IndexConfig(build=BuildConfig(leaf_capacity=64),
                        search=SearchConfig(chunk=128, scan_block=256))
     backends = {name: E.make_backend(name, data, index_config=icfg, device="cpu")
-                for name in E.backend_names()}
+                for name in E.backend_names("memory")}
     return data, q, icfg, backends
 
 

@@ -27,6 +27,7 @@ from repro_torch.kernels import lb_sax as klb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.compat import KERNEL_MODES, resolve_kernel_mode
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

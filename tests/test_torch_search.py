@@ -25,6 +25,7 @@ from repro_torch.core import search as TSr
 from repro_torch.core.index import HerculesIndex, IndexConfig
 from repro_torch.core.search import SearchConfig, validate_runtime_config
 from repro_torch.core.tree import BuildConfig
+from _torch_threads import one_torch_thread  # noqa: F401
 
 FIELDS_EXACT = ("positions", "ids", "path", "accessed", "eapca_pr", "sax_pr",
                 "visited_leaves")

@@ -29,6 +29,7 @@ from repro.core import lower_bounds as JLB
 from repro.core import summaries as JS
 from repro_torch.core import lower_bounds as TLB
 from repro_torch.core import summaries as TS
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def walks(seed, num, length):

@@ -29,6 +29,7 @@ from repro.core import summaries as JS
 from repro.core import tree as JT
 from repro_torch.core import layout as TL
 from repro_torch.core import tree as TT
+from _torch_threads import one_torch_thread  # noqa: F401
 
 STRUCTURE = ("parent", "left", "right", "is_leaf", "no_split", "depth", "endpoints",
              "num_segs", "split_lo", "split_hi", "split_use_std", "count", "num_nodes")
