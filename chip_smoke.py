@@ -29,7 +29,21 @@ Phases (any failure ends the run with a non-zero exit):
    (``decode_bf16_ed_matrix`` on a strided view of a real encoded block,
    with its error against a float64 evaluation);
 7. the card's answers against the CPU's on a small input (the CPU path is
-   the one the test suite holds against the JAX reference).
+   the one the test suite holds against the JAX reference);
+8. ``wkv6`` against its plain version: the LM path's prefill shape
+   (B=4, T=512, H=64, K=V=64) with a nonzero state, the decode shape (T=1),
+   bf16 r/k/v as served and float32, the extreme decays and the
+   overflow-then-reset case; CUDA-event times;
+9. LM serving at full width: ``rwkv6-7b`` (all 32 layers, d_model 4096,
+   bf16 compute, float32 parameters) with random weights from a seed, 8
+   requests of 512-token prompts through ``ServeEngine`` in two waves of 4,
+   32 new tokens each; ``wkv6`` must launch 32 x (1 + 31) x 2 = 2,048
+   times in that run; logits finite; the waves replayed step by step give
+   the engine's tokens; served again in float32 with the same weights, each
+   first token equals the request's solo run wherever its top-2 margin
+   exceeds twice the float32 logit tolerance;
+10. the card against the CPU at full width and 2 layers in float32: a
+   64-token prefill and 4 decode steps, logits within 1e-4, equal tokens.
 
 The line before the last two is ``{"kernels": [...]}``; then the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -200,14 +214,16 @@ def phase_adversarial():
 
 
 def reset_counters():
-    from repro_torch.kernels import ed as ked, lb_sax as klb
+    from repro_torch.kernels import ed as ked, lb_sax as klb, wkv6 as kwkv
     klb.lb_sax_matrix.launches = 0
     ked.ed_matrix.launches = 0
     ked.ed_min.launches = 0
     ked.decode_bf16_ed_matrix.launches = 0
+    kwkv.wkv6.launches = 0
 
 
 def read_counters() -> dict:
+    """The launch counts of the kNN paths' kernels."""
     from repro_torch.kernels import ed as ked, lb_sax as klb
     return {"lb_sax_matrix": klb.lb_sax_matrix.launches,
             "ed_min": ked.ed_min.launches, "ed_matrix": ked.ed_matrix.launches,
@@ -715,12 +731,313 @@ def phase_cpu_agreement():
         "dists equal")
 
 
+# ---------------------------------------------------------------------------
+# LM serving: rwkv6-7b and the wkv6 kernel
+# ---------------------------------------------------------------------------
+
+LM_REQUESTS, LM_PROMPT, LM_NEW, LM_SLOTS = 8, 512, 32, 4
+# A wave and a request alone run other matmul shapes, so their bf16
+# activations round differently, and 32 layers of random weights amplify
+# that: bf16 first-token logits of a wave and of its requests alone differ
+# by up to 0.97 (one H100), beyond every top-2 margin at random weights, so
+# no bf16 first token could be held. The serving logic is held in float32
+# with the same weights, where the gap was 5e-4: the logits of a wave and
+# of each request alone agree within F32_LOGIT_TOL, and the first tokens the
+# engine serves equal the solo ones wherever the solo top-2 margin exceeds
+# twice it (a flip needs a margin under twice the gap).
+F32_LOGIT_TOL = 5e-3
+
+
+def _wkv_inputs(g, b, t, h, dk, dv, dtype=None):
+    """r, k, v (in ``dtype``, default float32), w, u, a nonzero state."""
+    import torch
+    dev = torch.device("cuda")
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    r, k, v = n(b, t, h, dk), n(b, t, h, dk), n(b, t, h, dv)
+    if dtype is not None:
+        r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
+    return r, k, v, torch.sigmoid(n(b, t, h, dk)), n(h, dk), n(b, h, dk, dv)
+
+
+def _wkv_cost(b, t, h, dk, dv, esize):
+    """(bytes, operations) the recurrence needs: r, k, v of ``esize``
+    bytes and w float32 read once, out (``esize``) written once, u read and
+    the float32 state read and written; per (b, t, h) one FMA per (i, j)
+    for out (``sum_i r_i S_ij + v_j sum_i r_i u_i k_i``) and a multiply
+    and an FMA per (i, j) for the update."""
+    steps = b * t * h
+    nbytes = (esize * steps * (2 * dk + 2 * dv) + 4 * steps * dk + 4 * h * dk
+              + 2 * 4 * b * h * dk * dv)
+    return nbytes, steps * (5 * dk * dv + 3 * dk + 2 * dv)
+
+
+def phase_wkv6_kernel():
+    """``wkv6`` against its plain version on the card at the LM path's
+    prefill and decode shapes, with bf16 r, k, v as served and in float32
+    (phase 10's path), and on the extreme decays; times at both shapes, as
+    served. Returns the kernel's row for the ``{"kernels": ...}`` line (its
+    launches are filled in by the serving phase)."""
+    import torch
+    from repro_torch.kernels import ref, wkv6 as kwkv
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    shape = (4, LM_PROMPT, 64, 64, 64)
+    full, dec, err = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        full[dtype] = a = _wkv_inputs(g, *shape, getattr(torch, dtype))
+        out, sf = kwkv.wkv6(*a)
+        want_o, want_s = ref.wkv6_ref(*a)
+        check(out.dtype == a[0].dtype, f"wkv6 {dtype}: out is {out.dtype}")
+        err[dtype] = max(
+            assert_close(out, want_o, dtype, f"wkv6 prefill shape {dtype} out"),
+            assert_close(sf, want_s, "float32", f"wkv6 prefill shape {dtype} state"))
+        dec[dtype] = d = _wkv_inputs(g, 4, 1, 64, 64, 64, getattr(torch, dtype))
+        got = kwkv.wkv6(*d)
+        want = ref.wkv6_ref(*d)
+        assert_close(got[0], want[0], dtype, f"wkv6 decode shape {dtype} out")
+        assert_close(got[1], want[1], "float32", f"wkv6 decode shape {dtype} state")
+    # the extreme decays of tests/test_kernels.py:148-190 at a small shape
+    b, t, h, dk, dv = 1, 64, 1, 4, 4
+    rx, kx, vx, _, ux, sx = _wkv_inputs(g, b, t, h, dk, dv)
+    cols = [torch.zeros(b, t, h), torch.ones(b, t, h), torch.full((b, t, h), 1e-38),
+            torch.full((b, t, h), 1.0 - 1e-6)]
+    sweeps = [torch.full((b, t, h, dk), wv, device="cuda")
+              for wv in (0.0, 1e-38, 1.0 - 1e-6, 1.0)] + [torch.stack(cols, -1).cuda()]
+    for wx in sweeps:
+        o, s = kwkv.wkv6(rx, kx, vx, wx, ux, sx)
+        check(bool(torch.isfinite(o).all()), "wkv6 extreme decay: non-finite output")
+        wo, ws = ref.wkv6_ref(rx, kx, vx, wx, ux, sx)
+        assert_close(o, wo, "float32", "wkv6 extreme decay out")
+        assert_close(s, ws, "float32", "wkv6 extreme decay state")
+    kx, vx = kx[:, :24].clone(), vx[:, :24].clone()
+    kx[:, :8] = 2e19
+    vx[:, :8] = 2e19
+    wx = torch.ones(b, 24, h, dk, device="cuda")
+    wx[:, 8] = 0.0
+    zero = torch.zeros_like(sx)
+    o, s = kwkv.wkv6(rx[:, :24], kx, vx, wx, ux, zero)
+    wo, ws = ref.wkv6_ref(rx[:, :24], kx, vx, wx, ux, zero)
+    check(bool(torch.isfinite(o[:, 9:]).all()), "wkv6 overflow-reset: non-finite after reset")
+    assert_close(o[:, 9:], wo[:, 9:], "float32", "wkv6 overflow-reset out")
+    assert_close(s, ws, "float32", "wkv6 overflow-reset state")
+    torch.cuda.synchronize()
+    # the row: bf16 r, k, v and out, as served
+    f32_ms = time_ms(lambda: kwkv.wkv6(*full["float32"]), reps=20, warmup=2)
+    dec_ms = time_ms(lambda: kwkv.wkv6(*dec["bfloat16"]), reps=200, warmup=5)
+    row = dict(
+        name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
+        replaces="src/repro/kernels/wkv6.py:98", shape=list(shape), launches=None,
+        max_abs_err=err["bfloat16"],
+        ms=time_ms(lambda: kwkv.wkv6(*full["bfloat16"]), reps=20, warmup=2),
+        plain_ms=time_ms(lambda: ref.wkv6_ref(*full["bfloat16"]), reps=2),
+        library_ms=None)
+    row["bytes"], row["ops"] = _wkv_cost(*shape, 2)
+    _bound(row)
+    f32_bound, dec_bound = (1e3 * max(nb / HBM_BYTES_PER_S, ops / FP32_FLOPS)
+                            for nb, ops in (_wkv_cost(*shape, 4), _wkv_cost(4, 1, 64, 64, 64, 2)))
+    log(f"[wkv6] agrees with its plain version at the prefill shape {shape} (max abs err "
+        f"bf16 r/k/v {err['bfloat16']:.3e}, float32 {err['float32']:.3e}), the decode "
+        f"shape (4, 1, 64, 64, 64), the extreme decays and the overflow-then-reset case")
+    log(f"[timing] wkv6 {row['shape']}, bf16 r/k/v/out as served: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {row['bytes']} B, {row['ops']} ops); float32 r/k/v/out: "
+        f"kernel {f32_ms:.4f} ms, bound {f32_bound:.4f} ms; decode shape (4, 1, 64, 64, "
+        f"64), bf16: kernel {dec_ms:.4f} ms, bound {dec_bound:.5f} ms")
+    return row
+
+
+def _top2_margin(logits):
+    import torch
+    two = torch.topk(logits, 2, dim=-1).values
+    return two[..., 0] - two[..., 1]
+
+
+def _first_tokens_vs_solo(model, cfg, params, toks, served):
+    """Each request's first-token logits in its wave (prefilled 4 at a time)
+    against the request alone, within F32_LOGIT_TOL; the first tokens
+    ``served`` equal the solo argmax where the solo top-2 margin exceeds
+    twice that. Returns (largest logit gap, margins, equal count, held
+    count)."""
+    import torch
+    gaps, margins, agree, held = [], [], 0, 0
+    for w0 in range(0, LM_REQUESTS, LM_SLOTS):
+        wave, _ = model.prefill(params, {"tokens": toks[w0:w0 + LM_SLOTS]}, cfg,
+                                model.init_cache(cfg, LM_SLOTS, LM_PROMPT))
+        for i in range(w0, w0 + LM_SLOTS):
+            lg, _ = model.prefill(params, {"tokens": toks[i:i + 1]}, cfg,
+                                  model.init_cache(cfg, 1, LM_PROMPT))
+            solo = lg[0, -1]
+            check(bool(torch.isfinite(solo).all()), f"{cfg.dtype} solo logits not finite")
+            gaps.append(float((solo - wave[i - w0, -1]).abs().max()))
+            margins.append(float(_top2_margin(solo)))
+            same = int(torch.argmax(solo)) == served[i]
+            agree += same
+            if margins[-1] > 2 * F32_LOGIT_TOL:
+                held += 1
+                check(same, f"{cfg.dtype} request {i}: first token {served[i]} differs "
+                            f"from its solo run at top-2 margin {margins[-1]:.4f}")
+    check(max(gaps) <= F32_LOGIT_TOL, f"{cfg.dtype} wave vs solo first-token logits "
+                                      f"differ by {max(gaps):.3e} > {F32_LOGIT_TOL}")
+    return max(gaps), margins, agree, held
+
+
+def phase_lm_serve(profile: bool = False):
+    """rwkv6-7b at full width through ``ServeEngine``. Returns the ``wkv6``
+    launches of the served run and a summary."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6 as kwkv
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_config("rwkv6-7b")
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[lm] rwkv6-7b: {cfg.num_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.d_model // cfg.rwkv_head_size} heads of "
+        f"{cfg.rwkv_head_size}, {cfg.dtype} compute; {n_params} float32 parameters "
+        f"({n_params * 4 / 2**30:.2f} GiB) made on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+    eng = ServeEngine(model, cfg, params,
+                      ServeConfig(max_seq=LM_PROMPT + LM_NEW + 8, batch_slots=LM_SLOTS,
+                                  max_new_tokens=LM_NEW))
+    eng.submit(prompts[0, :16])          # warm-up: cuBLAS set-up, the bf16 weight copies
+    eng.run()
+    rids = [eng.submit(p) for p in prompts]
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kwkv.wkv6.launches
+    others = read_counters()
+    tokens = sum(len(out[r]) for r in rids)
+    want = cfg.num_layers * LM_NEW * (LM_REQUESTS // LM_SLOTS)
+    log(f"[lm] served {len(out)} requests, {tokens} tokens in {run_s:.3f}s "
+        f"({tokens / run_s:.1f} tok/s); wkv6 launches {launches} (want {want}), other kernels {others}")
+    check(launches == want, f"wkv6 launched {launches} times in the served run, not {want}")
+    check(all(c == 0 for c in others.values()), f"kNN kernels launched in the LM run: {others}")
+    check(sorted(out) == rids and all(len(out[r]) == LM_NEW for r in rids),
+          "the engine did not return LM_NEW tokens for every request")
+
+    # the same waves again, step by step: timed, logits kept (counted apart)
+    toks = torch.from_numpy(prompts.astype(np.int32)).cuda()
+    prefill_ms, decode_ms = [], []
+    for w0 in range(0, LM_REQUESTS, LM_SLOTS):
+        batch = {"tokens": toks[w0:w0 + LM_SLOTS]}
+        cache = model.init_cache(cfg, LM_SLOTS, LM_PROMPT + LM_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, batch, cfg, cache)
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        check(bool(torch.isfinite(lg).all()), "prefill logits are not finite")
+        tok = torch.argmax(lg[:, -1], dim=-1)
+        seq = [tok]
+        for _ in range(LM_NEW - 1):
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, tok[:, None].to(torch.int32), cfg, cache)
+            tok = torch.argmax(lg[:, 0], dim=-1)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+            check(bool(torch.isfinite(lg).all()), "decode logits are not finite")
+            seq.append(tok)
+        again = torch.stack(seq, 1).tolist()
+        check(again == [out[r] for r in rids[w0:w0 + LM_SLOTS]],
+              f"the wave at {w0} driven step by step differs from the engine's tokens")
+    dec_sorted = sorted(decode_ms)
+    log(f"[lm] prefill of a 4 x {LM_PROMPT} wave: {prefill_ms[0]:.2f} / {prefill_ms[1]:.2f} ms; "
+        f"decode step (4 rows): median {dec_sorted[len(dec_sorted) // 2]:.3f} ms, min "
+        f"{dec_sorted[0]:.3f}, max {dec_sorted[-1]:.3f} over {len(decode_ms)} steps; "
+        f"every logit finite; step-by-step tokens equal the engine's")
+
+    # the same requests served in float32 with the same weights, one token
+    # each, against each request alone (counted apart)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    eng32 = ServeEngine(model, cfg32, params,
+                        ServeConfig(max_seq=LM_PROMPT + 8, batch_slots=LM_SLOTS,
+                                    max_new_tokens=1))
+    rids32 = [eng32.submit(p) for p in prompts]
+    out32 = eng32.run()
+    gap32, margins32, agree32, held32 = _first_tokens_vs_solo(
+        model, cfg32, params, toks, [out32[r][0] for r in rids32])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[lm] float32 (same weights), first token served in its wave vs the request "
+        f"alone: logit gap {gap32:.3e} (limit {F32_LOGIT_TOL}), top-2 margins "
+        f"{[round(x, 4) for x in margins32]}, first tokens equal in {agree32} of "
+        f"{LM_REQUESTS}, {held32} held (margin > {2 * F32_LOGIT_TOL}); peak device "
+        f"memory {peak:.2f} GiB")
+    if profile:
+        cache = model.init_cache(cfg, LM_SLOTS, LM_PROMPT + 2)
+        batch = {"tokens": toks[:LM_SLOTS]}
+        lg, cache = model.prefill(params, batch, cfg, cache)
+        trace(f"rwkv6-7b prefill of a 4 x {LM_PROMPT} wave",
+              lambda: model.prefill(params, batch, cfg, model.init_cache(cfg, LM_SLOTS, 0)))
+        step = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+        trace("rwkv6-7b decode step, 4 rows", lambda: model.decode_step(params, step, cfg, cache))
+    summary = {"run_s": run_s, "tok_per_s": tokens / run_s, "prefill_ms": prefill_ms,
+               "decode_ms_median": dec_sorted[len(dec_sorted) // 2], "peak_gib": peak,
+               "first_token_logit_gap_f32": gap32,
+               "wkv6_launches": launches}
+    return launches, summary
+
+
+def phase_lm_cpu_agreement():
+    """Full width, 2 layers, float32, the same weights on the card (the
+    wkv6 kernel) and on the CPU (its plain version): a 64-token prefill and
+    4 decode steps give logits within 1e-4 and the same greedy tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=2, dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 64)).astype(np.int32))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params.to(dev)
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, {"tokens": prompt.to(dev)}, cfg,
+                                  model.init_cache(cfg, 1, 72, dev))
+        logits, toks = [lg[0, -1].cpu()], [int(torch.argmax(lg[0, -1]))]
+        for _ in range(4):
+            lg, cache = model.decode_step(
+                params, torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev), cfg, cache)
+            logits.append(lg[0, 0].cpu())
+            toks.append(int(torch.argmax(lg[0, 0])))
+        runs[dev] = (torch.stack(logits), toks, time.perf_counter() - t0)
+    err = assert_close(runs["cuda"][0], runs["cpu"][0], "float32",
+                       "rwkv6 full width, 2 layers: card vs CPU logits")
+    check(runs["cuda"][1] == runs["cpu"][1],
+          f"rwkv6 card tokens {runs['cuda'][1]} differ from the CPU's {runs['cpu'][1]}")
+    log(f"[lm-agree] full width, 2 layers, float32: the card's logits are within 1e-4 of "
+        f"the CPU's (max abs err {err:.3e}) over a 64-token prefill and 4 decode steps; "
+        f"tokens equal {runs['cuda'][1]} (card {runs['cuda'][2]:.2f}s, CPU "
+        f"{runs['cpu'][2]:.2f}s)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--num-series", type=int, default=FULL_SERIES)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 16 queries per backend with torch.profiler")
+                    help="also trace 16 queries per backend, and a prefill wave and a "
+                         "decode step of rwkv6-7b, with torch.profiler")
     ap.add_argument("--disk-dir", default=None,
                     help="directory for the disk phase's index (default: a new "
                          "temporary directory); removed at the end")
@@ -753,6 +1070,14 @@ def main(argv=None) -> int:
     del data, queries, local, answers
     torch.cuda.empty_cache()
     phase_cpu_agreement()
+    t_lm = time.perf_counter()
+    wkv_row = phase_wkv6_kernel()
+    wkv_row["launches"], summary["lm"] = phase_lm_serve(args.profile)
+    rows.append(wkv_row)
+    torch.cuda.empty_cache()
+    phase_lm_cpu_agreement()
+    summary["lm"]["phases_s"] = time.perf_counter() - t_lm
+    log(f"[lm] the LM phases (8-10) took {summary['lm']['phases_s']:.1f}s")
     log(f"[main] summary {json.dumps(summary)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

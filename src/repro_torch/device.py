@@ -9,12 +9,15 @@ from __future__ import annotations
 import torch
 
 
-def _disable_tf32() -> None:
+def _full_precision_matmuls() -> None:
     """Keep float32 matmuls and convolutions in full float32: TF32 keeps
     about three decimal digits and would break the 1e-4 distance tolerance
-    of the matmul-identity scan (``scan-mxu``) and the brute-force oracle."""
+    of the matmul-identity scan (``scan-mxu``) and the brute-force oracle.
+    And keep bf16 matmuls' reductions in float32, as the reference's bf16
+    dots accumulate: cuBLAS may otherwise add split-K partial sums in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -25,7 +28,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "port on the CPU")
-        _disable_tf32()
+        _full_precision_matmuls()
     elif dev.type != "cpu":
         raise ValueError(f"device={device!r}; expected 'cuda' or 'cpu'")
     return dev

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("lb_sax", "ed")
+SOURCES = ("lb_sax", "ed", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -119,6 +119,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.decode_bf16_ed_matrix.argtypes = [_P, _P, ctypes.c_longlong, _P, _P,
                                               _I, _I, _I, _P]
         lib.decode_bf16_ed_matrix.restype = _I
+    elif name == "wkv6":
+        for fn in (lib.wkv6_f32, lib.wkv6_bf16):
+            fn.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+            fn.restype = _I
 
 
 def check(err: int, what: str) -> None:

@@ -3,8 +3,9 @@
 Each function resolves ``mode`` (``auto | cuda | ref``, see
 :mod:`repro_torch.kernels.compat`) against the device of its tensors and
 runs either the hand-written CUDA kernel or its plain PyTorch version. The
-CUDA kernels mask their own ragged edges, so unlike the reference's
-wrappers nothing is padded to block multiples here.
+CUDA kernels mask their own ragged edges (and ``wkv6`` loops over any T),
+so unlike the reference's wrappers nothing is padded to block multiples
+here.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from repro_torch.core import summaries as S
 from repro_torch.kernels import ed as _ed
 from repro_torch.kernels import lb_sax as _lb
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels.compat import resolve_kernel_mode
 
 
@@ -70,3 +72,15 @@ def lb_sax_matrix(q_paa: torch.Tensor, codes: torch.Tensor, series_len: int, *,
 
 # the engine-facing short name (core/search.py's pruning call site)
 lb_sax = lb_sax_matrix
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor, *,
+         mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence: r, k, w (B, T, H, K); v (B, T, H, V); u (H, K);
+    state (B, H, K, V) -> (out (B, T, H, V) in r's dtype, final state
+    float32). Any T >= 0: the reference pads a ragged T with identity steps
+    for its chunked kernel, which changes no result."""
+    if resolve_kernel_mode(mode, _device(r, k, v, w, u, state)) == "ref":
+        return _ref.wkv6_ref(r, k, v, w, u, state)
+    return _wkv6.wkv6(r, k, v, w, u, state)

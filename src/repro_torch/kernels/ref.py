@@ -2,8 +2,8 @@
 
 Each mirrors one kernel's contract (shapes, dtypes, masking) with
 straight-line tensor code in the direct-sum form of
-``repro/kernels/ref.py``. They are what a CPU tensor runs, and what the card
-checks each kernel against. Work over the series axis is cut into row
+``repro/kernels/ref.py`` (``wkv6_ref``: a plain loop over T). They are what
+a CPU tensor runs, and what the card checks each kernel against. Work over the series axis is cut into row
 blocks so the ``(Q, rows, n)`` difference tensor stays bounded at the main
 path's shapes; blocking changes no arithmetic (each output element is one
 row's fixed-order sum).
@@ -76,3 +76,27 @@ def lb_sax_matrix_ref(q_paa: torch.Tensor, codes: torch.Tensor, series_len: int,
         out[:, lo:lo + c.shape[0]] = LB.lb_sax(q[:, None, :], c[None, :, :],
                                                series_len, alphabet)
     return out
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u: torch.Tensor, state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence, a plain loop over T (``repro/kernels/ref.py::wkv6_ref``).
+
+    r, k, w (B, T, H, K); v (B, T, H, V); u (H, K); state (B, H, K, V).
+    Per step ``out_t = r_t . (S + diag(u) k_t v_t^T)`` and
+    ``S = diag(w_t) S + k_t v_t^T``, all in float32; ``w == 0`` is an exact
+    reset to ``k_t v_t^T`` (never ``0 * S``, which turns an overflowed state
+    into NaN). Returns (out (B, T, H, V) in r's dtype, final state float32).
+    """
+    b, t, h, _ = r.shape
+    out = torch.empty((b, t, h, v.shape[-1]), dtype=r.dtype, device=r.device)
+    s = state.to(torch.float32, copy=True)
+    uu = u.to(torch.float32)[None, :, :, None]
+    for i in range(t):
+        rt, kt = r[:, i].to(torch.float32), k[:, i].to(torch.float32)
+        vt, wt = v[:, i].to(torch.float32), w[:, i].to(torch.float32)
+        kv = kt[..., :, None] * vt[..., None, :]                  # (B, H, K, V)
+        out[:, i] = torch.einsum("bhk,bhkv->bhv", rt, s + uu * kv).to(r.dtype)
+        wd = wt[..., :, None]
+        s = torch.where(wd == 0.0, kv, wd * s + kv)
+    return out, s

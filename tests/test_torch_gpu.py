@@ -1,6 +1,6 @@
 """The port on a CUDA card: each hand-written kernel against its plain
 version, the pinned-slot reader, and the card's build and answers
-(in memory and out of core) against the CPU's.
+(in memory and out of core) and RWKV-6 logits and tokens against the CPU's.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -17,6 +17,10 @@ folds as its plain version does). ``decode_bf16_ed_matrix``: distances
 within ``rtol = atol = 1e-4`` of the plain version, and within
 ``1e-5 * (||q||^2 + ||s^||^2)`` of a float64 evaluation -- the slack the
 out-of-core bounds allow for it (``core/engine.py`` ``_BOUND_REL``).
+``wkv6``: ``rtol = atol = 1e-4`` in float32 (past an overflow, from the
+reset on); bf16 r/k/v are widened exactly and the state holds 1e-4, while
+the bf16 output, rounded from float32 sums in another order, holds the
+bfloat16 tolerance.
 """
 import numpy as np
 import pytest
@@ -29,9 +33,16 @@ from repro_torch.core import tree as TT
 from repro_torch.core.index import IndexConfig
 from repro_torch.core.search import SearchConfig
 from repro_torch.data import pipeline as TP
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import _build
 from repro_torch.kernels import ed as ked
 from repro_torch.kernels import lb_sax as klb
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import wkv6 as kwkv
+from repro_torch.models import get_model
+from repro_torch.models import rwkv6 as TR
+from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.storage import build_index_to_disk
 from repro_torch.storage import codecs as TC
 
@@ -254,3 +265,123 @@ def test_ooc_local_equals_cpu(cuda, tmp_path, codec):
             want = local.knn(q, k=k)
             assert torch.equal(g.dists.cpu(), want.dists)
             assert torch.equal(g.ids.cpu().long(), want.ids.long())
+
+
+def wkv_inputs(seed, b, t, h, dk, dv, cuda, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+
+    def n(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    r, k, v = n(b, t, h, dk).to(dtype), n(b, t, h, dk).to(dtype), n(b, t, h, dv).to(dtype)
+    w = torch.sigmoid(n(b, t, h, dk))
+    return r, k, v, w, n(h, dk), n(b, h, dk, dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dk,dv", [(1, 1, 1, 1, 1), (2, 37, 2, 4, 4), (1, 64, 2, 8, 8),
+                                         (2, 16, 1, 4, 8), (2, 40, 3, 64, 64),
+                                         (4, 1, 64, 64, 64), (1, 5, 2, 33, 17), (2, 0, 2, 4, 4)])
+def test_wkv6_kernel_matches_plain(cuda, b, t, h, dk, dv, dtype):
+    r, k, v, w, u, s0 = wkv_inputs(b * 100 + t, b, t, h, dk, dv, cuda, dtype)
+    before = kwkv.wkv6.launches
+    out, sf = kwkv.wkv6(r, k, v, w, u, s0)
+    assert kwkv.wkv6.launches == before + 1
+    want_o, want_s = tref.wkv6_ref(r, k, v, w, u, s0)
+    assert out.dtype == dtype and sf.dtype == torch.float32
+    assert_close(out, want_o, "float32" if dtype == torch.float32 else "bfloat16")
+    assert_close(sf, want_s)
+    got = tops.wkv6(r, k, v, w, u, s0)
+    assert torch.equal(got[0], out) and torch.equal(got[1], sf)
+
+
+def test_wkv6_kernel_extreme_decay(cuda):
+    """w at the exact boundaries (0 resets, 1 keeps), subnormal, 1 - 1e-6,
+    and one extreme per channel, with a nonzero initial state."""
+    b, t, h, dk, dv = 1, 64, 1, 4, 4
+    r, k, v, _, u, s0 = wkv_inputs(10, b, t, h, dk, dv, cuda)
+    mixed = torch.stack([torch.zeros(b, t, h), torch.ones(b, t, h),
+                         torch.full((b, t, h), 1e-38), torch.full((b, t, h), 1.0 - 1e-6)],
+                        dim=-1).to(cuda)
+    sweeps = [torch.full((b, t, h, dk), wv, device=cuda)
+              for wv in (0.0, 1e-38, 1e-6, 1.0 - 1e-6, 1.0)] + [mixed]
+    for w in sweeps:
+        out, sf = kwkv.wkv6(r, k, v, w, u, s0)
+        want_o, want_s = tref.wkv6_ref(r, k, v, w, u, s0)
+        assert bool(torch.isfinite(out).all())
+        assert_close(out, want_o)
+        assert_close(sf, want_s)
+
+
+def test_wkv6_kernel_resets_an_overflowed_state(cuda):
+    b, t, h, dk, dv = 1, 24, 1, 4, 4
+    r, k, v, _, u, _ = wkv_inputs(11, b, t, h, dk, dv, cuda)
+    k[:, :8] = 2e19
+    v[:, :8] = 2e19
+    w = torch.ones(b, t, h, dk, device=cuda)
+    w[:, 8] = 0.0
+    s0 = torch.zeros(b, h, dk, dv, device=cuda)
+    out, sf = kwkv.wkv6(r, k, v, w, u, s0)
+    want_o, want_s = tref.wkv6_ref(r, k, v, w, u, s0)
+    assert bool(torch.isfinite(out[:, 9:]).all()) and bool(torch.isfinite(sf).all())
+    assert_close(out[:, 9:], want_o[:, 9:])
+    assert_close(sf, want_s)
+
+
+def test_wkv6_kernel_refuses_what_it_cannot_take(cuda):
+    r, k, v, w, u, s0 = wkv_inputs(12, 1, 3, 1, 65, 4, cuda)
+    with pytest.raises(ValueError, match="K, V <= 64"):
+        kwkv.wkv6(r, k, v, w, u, s0)
+    r, k, v, w, u, s0 = wkv_inputs(12, 1, 3, 1, 4, 4, cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kwkv.wkv6(r, k, v, w, u, s0.cpu())
+    with pytest.raises(TypeError):
+        kwkv.wkv6(r, k, v, w, u.double(), s0)
+    with pytest.raises(TypeError, match="one dtype"):
+        kwkv.wkv6(r.bfloat16(), k, v, w, u, s0)
+    with pytest.raises(TypeError, match="float32 w"):
+        kwkv.wkv6(r, k, v, w.bfloat16(), u, s0)
+
+
+def test_wkv6_build_error_raises(cuda, tmp_path, monkeypatch):
+    """A source that does not compile raises at the first launch: nothing
+    falls back to the plain version."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in _build.SOURCES:
+        (src / f"{name}.cu").write_bytes((_build.CSRC / f"{name}.cu").read_bytes())
+    (src / "wkv6.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    r, k, v, w, u, s0 = wkv_inputs(13, 1, 3, 1, 4, 4, cuda)
+    before = kwkv.wkv6.launches
+    with pytest.raises(RuntimeError, match="nvcc failed for wkv6.cu"):
+        tops.wkv6(r, k, v, w, u, s0)
+    assert kwkv.wkv6.launches == before
+
+
+def test_rwkv6_smoke_on_the_card_equals_cpu(cuda):
+    """The smoke model (float32) with the same weights: the card (wkv6
+    kernel) and the CPU (plain version) give logits within 1e-4 and the same
+    greedy tokens, and the card keeps TF32 off."""
+    cfg = get_smoke("rwkv6-7b")
+    gpu = TR.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    cpu = TR.init_params(torch.Generator().manual_seed(0), cfg)
+    cpu.load_state_dict(gpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(14).integers(0, cfg.vocab_size, (3, 20)))
+    before = kwkv.wkv6.launches
+    lg, _ = TR.forward(gpu, {"tokens": toks.to(cuda)}, cfg)
+    assert kwkv.wkv6.launches == before + cfg.num_layers
+    lc, _ = TR.forward(cpu, {"tokens": toks}, cfg)
+    assert_close(lg, lc)
+    model = get_model(cfg)
+    outs = []
+    for params in (gpu, cpu):
+        eng = ServeEngine(model, cfg, params, ServeConfig(max_seq=64, batch_slots=2,
+                                                          max_new_tokens=8))
+        for row in toks.numpy():
+            eng.submit(row)
+        outs.append(eng.run())
+    assert outs[0] == outs[1]
+    assert torch.backends.cuda.matmul.allow_tf32 is False
