@@ -10,7 +10,9 @@ Phases (any failure ends the run with a non-zero exit):
 1. device: a CUDA card must be present; print its name and power limit;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels vs plain versions at adversarial shapes (ragged N and n,
-   ``valid_n`` masking, ties, an all-inf row, bf16 series);
+   ``valid_n`` masking, ties, an all-inf row, bf16 series, a bf16 payload at
+   the codec's pitch), and the ED witness: the row minima and first argmins
+   of ``ed_matrix`` and ``decode_bf16_ed_matrix`` equal ``ed_min``'s;
 4. the main path at a real size: the paper's Synth random walks (length
    256), a Hercules index with 4096-series leaves, 100 queries at the "5%"
    hardness answered for k=1 and k=10 through ``QueryEngine`` over the
@@ -25,9 +27,13 @@ Phases (any failure ends the run with a non-zero exit):
    synchronous one); every answer is held against phase 4's in-memory
    answers bit for bit, and every kernel of the path must have launched;
 6. kernels vs plain versions at the main path's shapes, with CUDA-event
-   times for kernel, plain version and library call, and the bound
-   (``decode_bf16_ed_matrix`` on a strided view of a real encoded block,
-   with its error against a float64 evaluation);
+   times for kernel, plain version and library call (each launched from a
+   host loop, as the engine launches them), and the bound;
+   ``ed_matrix`` and ``decode_bf16_ed_matrix`` (on a strided view of a real
+   encoded block, with its error against a float64 evaluation) at 4096 and
+   131,072 rows, also timed on the device alone by a CUDA graph
+   (``device_ms``), with their launches per run at each shape and the ED
+   witness;
 7. the card's answers against the CPU's on a small input (the CPU path is
    the one the test suite holds against the JAX reference);
 8. ``wkv6`` against its plain version: the LM path's prefill shape
@@ -45,7 +51,8 @@ Phases (any failure ends the run with a non-zero exit):
 10. the card against the CPU at full width and 2 layers in float32: a
    64-token prefill and 4 decode steps, logits within 1e-4, equal tokens.
 
-The line before the last two is ``{"kernels": [...]}``; then the card's
+The line before the last two is ``{"kernels": [...]}`` (``device_ms`` is
+null where only the host loop timed a kernel); then the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -91,7 +98,9 @@ def smi_line() -> str:
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs, by CUDA events."""
+    """Mean time of ``fn`` over ``reps`` runs launched from a host loop, as
+    the engine launches them, by CUDA events: the ``ms``, ``plain_ms`` and
+    ``library_ms`` of every row."""
     import torch
     for _ in range(warmup):
         fn()
@@ -104,6 +113,70 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back launches: CUDA
+    events around one replay of a CUDA graph of them, so no host time falls
+    between the launches (at a 4096-row ``ed_matrix`` the host loop of
+    :func:`time_ms` takes longer than the kernel): the ``device_ms`` of the
+    ED rows."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def bf16_payload(rows):
+    """(N, n) float32 rows -> a (N, 2n) uint8 view at the bf16 codec's row
+    pitch 2n + 4 (the bf16 bits, then a 4-byte trailer), as the disk path
+    hands its encoded blocks to ``decode_bf16_ed_matrix``."""
+    import torch
+    num, n = rows.shape
+    enc = torch.zeros((num, 2 * n + 4), dtype=torch.uint8, device=rows.device)
+    enc[:, :2 * n] = rows.to(torch.bfloat16).view(torch.uint8)
+    return enc[:, :-4]
+
+
+def hold_witness(queries, rows=None, payload=None, what: str = "") -> None:
+    """The arithmetic witness of ed.cu's two tile cores: each row's minimum
+    of ``ed_matrix`` (over float32 ``rows`` and their bf16 rounding) and of
+    ``decode_bf16_ed_matrix`` (over ``payload``) equals ``ed_min``'s
+    distance over the same series, as a value, and the lowest index that
+    attains it equals ``ed_min``'s index. ``ed_min`` runs the other tile
+    core on the same formula and fmaf order, so any change in a bit of a
+    row's minimum shows."""
+    import torch
+    from repro_torch.kernels import ed as ked
+    pairs = []
+    if rows is not None:
+        pairs.append(("ed_matrix f32", ked.ed_matrix(queries, rows), rows))
+        rb = rows.to(torch.bfloat16)
+        pairs.append(("ed_matrix bf16", ked.ed_matrix(queries, rb), rb))
+    if payload is not None:
+        pairs.append(("decode_bf16_ed_matrix", ked.decode_bf16_ed_matrix(queries, payload)[0],
+                      payload.contiguous().view(torch.bfloat16)))
+    for name, mat, series in pairs:
+        dmin, amin = ked.ed_min(queries, series)
+        low = mat.min(dim=1).values
+        first = (mat == low[:, None]).int().argmax(dim=1)
+        check(torch.equal(low, dmin), f"witness {name} {what}: a row minimum differs "
+                                      f"from ed_min's distance")
+        check(torch.equal(first, amin.long()), f"witness {name} {what}: the first argmin "
+                                               f"differs from ed_min's index")
 
 
 def assert_close(got, want, dtype: str, what: str) -> float:
@@ -169,15 +242,26 @@ def phase_adversarial():
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    # ed_matrix: ragged shapes, float32 and bf16 series
+    # ed_matrix (float32 and bf16 series) and decode_bf16_ed_matrix (a
+    # payload at the codec's pitch): ragged shapes and both tile shapes;
+    # each also held to the ed_min witness
     for (q, n, length) in [(1, 1, 1), (1, 100, 128), (5, 77, 48), (8, 129, 33),
-                           (130, 4097, 256)]:
+                           (130, 4097, 256), (127, 31, 7), (1, 4097, 256),
+                           (129, 131073, 255)]:
         qa, sa = randn(q, length), randn(n, length)
         assert_close(ked.ed_matrix(qa, sa), ref.ed_matrix_ref(qa, sa), "float32",
                      f"ed_matrix f32 {q}x{n}x{length}")
         sb = sa.to(torch.bfloat16)
         assert_close(ked.ed_matrix(qa, sb), ref.ed_matrix_ref(qa, sb), "bfloat16",
                      f"ed_matrix bf16 {q}x{n}x{length}")
+        payload = bf16_payload(sa)
+        got, sn = ked.decode_bf16_ed_matrix(qa, payload)
+        assert_close(got, ref.decode_bf16_ed_matrix_ref(qa, payload), "float32",
+                     f"decode_bf16_ed_matrix {q}x{n}x{length}")
+        rows = ref.decode_bf16_ref(payload)
+        assert_close(sn, S.fixed_order_sum(rows * rows), "float32",
+                     f"decode_bf16_ed_matrix row norms {q}x{n}x{length}")
+        hold_witness(qa, sa, payload, f"{q}x{n}x{length}")
     # ed_min: ragged shapes, valid_n masking, ties, all-inf rows
     for (q, n, length) in [(1, 1, 1), (3, 13, 64), (5, 77, 48), (70, 5000, 256)]:
         qa, sa = randn(q, length), randn(n, length)
@@ -209,8 +293,9 @@ def phase_adversarial():
     check(torch.equal(klb.lb_sax_matrix(q_paa, codes, 64),
                       ref.lb_sax_matrix_ref(q_paa, codes, 64)), "lb_sax extreme PAA")
     torch.cuda.synchronize()
-    log("[kernels] adversarial shapes: ed_matrix (f32, bf16), ed_min, lb_sax agree "
-        "with their plain versions")
+    log("[kernels] adversarial shapes: ed_matrix (f32, bf16), decode_bf16_ed_matrix, "
+        "ed_min, lb_sax agree with their plain versions; the row minima and first "
+        "argmins of ed_matrix and decode_bf16_ed_matrix equal ed_min's")
 
 
 def reset_counters():
@@ -422,7 +507,9 @@ def _disk_path(data, queries, local, answers, path, profile):
                 f"{ {key: after[key] - before[key] for key in after} }")
             summary["calls"][tag] = {"ms_per_query": 1e3 * dt / len(queries),
                                      "rows_streamed": t.rows_streamed,
-                                     "codec_fallbacks": t.codec_fallbacks}
+                                     "codec_fallbacks": t.codec_fallbacks,
+                                     "launches": {key: after[key] - before[key]
+                                                  for key in after}}
             want = answers[("local" if name == "ooc-local" else "scan", k)]
             check(torch.equal(res.dists, want.dists),
                   f"{tag}: dists are not bit-identical to the in-memory "
@@ -475,9 +562,11 @@ def _disk_path(data, queries, local, answers, path, profile):
 def phase_disk_kernels(queries, blocks, launches):
     """``decode_bf16_ed_matrix`` at the out-of-core scan's shape (the query
     bucket against one streamed 131,072-row bf16 block, read in place at its
-    row pitch), against its plain version, the library call and a float64
-    evaluation; then ``lb_sax_matrix`` and ``ed_min`` at the out-of-core
-    shapes, against their plain versions (times logged, for PERF.md)."""
+    row pitch) and at ``ooc-local``'s (4096 rows of it, a leaf padded to
+    ``max_leaf``), against its plain version, the library call, a float64
+    evaluation and the ed_min witness; then ``lb_sax_matrix`` and ``ed_min``
+    at the out-of-core shapes, against their plain versions (times logged,
+    for PERF.md). Returns (the kernel's row, the rows of other shapes)."""
     import torch
     from repro_torch.core import summaries as S
     from repro_torch.kernels import ed as ked, lb_sax as klb, ref
@@ -496,34 +585,47 @@ def phase_disk_kernels(queries, blocks, launches):
           "decode_bf16_ref: decoded values are not the exact bf16 widening")
     del bits
     got, sn = ked.decode_bf16_ed_matrix(qb, payload)
-    want = ref.decode_bf16_ed_matrix_ref(qb, payload)
-    err = assert_close(got, want, "float32", "decode_bf16_ed_matrix main shape")
     q64, r64 = qb.double(), decoded.double()
     exact = (q64 * q64).sum(1)[:, None] + (r64 * r64).sum(1)[None, :] - 2.0 * (q64 @ r64.T)
     scale = (q64 * q64).sum(1)[:, None] + (r64 * r64).sum(1)[None, :]
     ratio = float(((got.double() - exact).abs() / scale).max())
-    del exact, scale, r64
+    del exact, scale, r64, got, sn
     log(f"[timing] decode_bf16_ed_matrix soundness: max |d_kernel - d_f64| / "
         f"(|q|^2 + |s^|^2) = {ratio:.3e} (limit 1e-5)")
     check(ratio <= 1e-5, f"decode_bf16_ed_matrix: error ratio {ratio:.3e} > 1e-5")
-    lib = lambda: torch.cdist(qb, payload.view(torch.bfloat16).float(),
-                              compute_mode="use_mm_for_euclid_dist").square()
-    row = dict(
-        name="decode_bf16_ed_matrix", route="cuda",
-        source="src/repro_torch/kernels/csrc/ed.cu",
-        replaces="src/repro/kernels/ops.py:106",
-        shape=[bucket, num, n], launches=launches["decode_bf16_ed_matrix"],
-        max_abs_err=err, soundness_ratio=ratio,
-        ms=time_ms(lambda: ked.decode_bf16_ed_matrix(qb, payload),
-                   reps=20, warmup=2),
-        plain_ms=time_ms(lambda: ref.decode_bf16_ed_matrix_ref(qb, payload), reps=2),
-        library_ms=time_ms(lib, reps=10, warmup=2),
-        bytes=qb.numel() * 4 + payload.numel() + got.numel() * 4 + sn.numel() * 4,
-        ops=2 * bucket * num * n)
-    _bound(row)
-    log(f"[timing] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    row, shapes = None, []
+    for num_rows in (num, min(num, 4096)):
+        view = payload[:num_rows]
+        big = num_rows == num
+        got, sn = ked.decode_bf16_ed_matrix(qb, view)
+        err = assert_close(got, ref.decode_bf16_ed_matrix_ref(qb, view), "float32",
+                           f"decode_bf16_ed_matrix {bucket}x{num_rows}")
+        del got, sn
+        hold_witness(qb, None, view, f"{bucket}x{num_rows}x{n}")
+        lib = lambda: torch.cdist(qb, view.view(torch.bfloat16).float(),
+                                  compute_mode="use_mm_for_euclid_dist").square()
+        r = dict(
+            name="decode_bf16_ed_matrix", route="cuda",
+            source="src/repro_torch/kernels/csrc/ed.cu",
+            replaces="src/repro/kernels/ops.py:106",
+            shape=[bucket, num_rows, n], launches=launches["decode_bf16_ed_matrix"],
+            max_abs_err=err, soundness_ratio=ratio,
+            ms=time_ms(lambda: ked.decode_bf16_ed_matrix(qb, view),
+                       reps=20 if big else 200, warmup=2),
+            device_ms=device_ms(lambda: ked.decode_bf16_ed_matrix(qb, view),
+                                reps=40 if big else 500),
+            plain_ms=time_ms(lambda: ref.decode_bf16_ed_matrix_ref(qb, view), reps=2),
+            library_ms=time_ms(lib, reps=10 if big else 50, warmup=2),
+            bytes=qb.numel() * 4 + view.numel() + bucket * num_rows * 4 + num_rows * 4,
+            ops=2 * bucket * num_rows * n)
+        _bound(r)
+        log_timing(r)
+        if big:
+            row = r
+        else:
+            shapes.append(r)
+    log(f"[witness] decode_bf16_ed_matrix row minima and first argmins equal ed_min's "
+        f"(bf16) at {bucket}x{num}x{n} and {bucket}x{min(num, 4096)}x{n}")
 
     # the slice-1 kernels at the shapes the out-of-core path gives them,
     # held against their plain versions there and timed
@@ -557,7 +659,7 @@ def phase_disk_kernels(queries, blocks, launches):
         log(f"[timing] ooc shape {r['name']} {r['shape']}: agrees with its plain "
             f"version; kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
-    return row
+    return row, shapes
 
 
 def _bound(r: dict) -> None:
@@ -620,27 +722,48 @@ def phase_kernel_timing(data, queries, local, launches):
         bytes=(qb.numel() + data.numel()) * 4 + bucket * 8,
         ops=2 * bucket * num * n))
 
-    # ed_matrix: the k>1 scan, the query bucket against one scan block
-    blk = data[:4096]
-    got = ked.ed_matrix(qb, blk)
-    err = assert_close(got, ref.ed_matrix_ref(qb, blk), "float32", "ed_matrix main shape")
-    lib_mat = lambda: torch.cdist(qb, blk, compute_mode="use_mm_for_euclid_dist").square()
-    rows.append(dict(
-        name="ed_matrix", route="cuda", source="src/repro_torch/kernels/csrc/ed.cu",
-        replaces="src/repro/kernels/ed.py:110", shape=[bucket, blk.shape[0], n],
-        launches=launches["ed_matrix"], max_abs_err=err,
-        ms=time_ms(lambda: ked.ed_matrix(qb, blk), reps=200, warmup=5),
-        plain_ms=time_ms(lambda: ref.ed_matrix_ref(qb, blk), reps=10),
-        library_ms=time_ms(lib_mat, reps=50, warmup=3),
-        bytes=(qb.numel() + blk.numel() + got.numel()) * 4,
-        ops=2 * bucket * blk.shape[0] * n))
+    # ed_matrix: the k>1 scan's shape (the query bucket against one 4096-row
+    # scan block; ooc-scan raw k>1 folds the same), and 131,072 rows (an
+    # out-of-core block's worth). ms is the host loop's time, as in every
+    # row, device_ms a CUDA graph's of back-to-back launches; the ed_min
+    # witness holds at both
+    extra = []
+    for num_rows in (4096, 1 << 17):
+        blk = data[:num_rows]
+        small = num_rows == 4096
+        got = ked.ed_matrix(qb, blk)
+        err = assert_close(got, ref.ed_matrix_ref(qb, blk), "float32",
+                           f"ed_matrix {bucket}x{num_rows}")
+        del got
+        hold_witness(qb, blk, None, f"{bucket}x{num_rows}x{n}")
+        lib_mat = lambda: torch.cdist(qb, blk, compute_mode="use_mm_for_euclid_dist").square()
+        (rows if small else extra).append(dict(
+            name="ed_matrix", route="cuda", source="src/repro_torch/kernels/csrc/ed.cu",
+            replaces="src/repro/kernels/ed.py:110", shape=[bucket, num_rows, n],
+            launches=launches["ed_matrix"] if small else 0, max_abs_err=err,
+            ms=time_ms(lambda: ked.ed_matrix(qb, blk), reps=200 if small else 20,
+                       warmup=5),
+            device_ms=device_ms(lambda: ked.ed_matrix(qb, blk), reps=500 if small else 40),
+            plain_ms=time_ms(lambda: ref.ed_matrix_ref(qb, blk), reps=10 if small else 2),
+            library_ms=time_ms(lib_mat, reps=50 if small else 10, warmup=3),
+            bytes=(qb.numel() + blk.numel() + bucket * num_rows) * 4,
+            ops=2 * bucket * num_rows * n))
+    log(f"[witness] ed_matrix (f32, bf16) row minima and first argmins equal ed_min's at "
+        f"{bucket}x4096x{n} and {bucket}x{1 << 17}x{n}")
 
-    for r in rows:
+    for r in rows + extra:
         _bound(r)
-        log(f"[timing] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} B, {r['ops']} ops)")
-    return rows
+        log_timing(r)
+    return rows, extra
+
+
+def log_timing(r: dict) -> None:
+    dev = f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else ""
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    log(f"[timing] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms{dev}, plain "
+        f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}: {r['bytes']} B, {r['ops']} ops); the kernel at "
+        f"{r['bound_ms'] / r['ms']:.1%} of the bound")
 
 
 def phase_profile(data, queries, local):
@@ -1062,9 +1185,39 @@ def main(argv=None) -> int:
                                                                   args.queries)
     disk_launches, blocks, summary["disk"] = phase_disk(data, queries, local, answers,
                                                         args.disk_dir, args.profile)
-    rows = phase_kernel_timing(data, queries, local, launches)
-    rows.append(phase_disk_kernels(queries, blocks, disk_launches))
+    rows, shapes = phase_kernel_timing(data, queries, local, launches)
+    disk_row, disk_shapes = phase_disk_kernels(queries, blocks, disk_launches)
+    rows.append(disk_row)
+    shapes += disk_shapes
     del blocks
+    # launches per run of the redesigned ED kernels at each timed shape:
+    # ed_matrix runs on 4096-row blocks only (the k>1 scan, ooc-scan raw
+    # k>1); decode_bf16_ed_matrix on 131,072-row blocks in ooc-scan and on
+    # leaves padded to max_leaf rows in ooc-local
+    calls = summary["disk"]["calls"]
+    per_run = {
+        ("ed_matrix", 4096): launches["ed_matrix"] + sum(
+            c["launches"]["ed_matrix"] for c in calls.values()),
+        ("ed_matrix", 1 << 17): 0,
+        ("decode_bf16_ed_matrix", 1 << 17): sum(
+            c["launches"]["decode_bf16_ed_matrix"] for t, c in calls.items()
+            if t.startswith("ooc-scan")),
+        ("decode_bf16_ed_matrix", 4096): sum(
+            c["launches"]["decode_bf16_ed_matrix"] for t, c in calls.items()
+            if t.startswith("ooc-local")),
+    }
+    for r in rows + shapes:
+        key = (r["name"], r["shape"][1])
+        if key in per_run:
+            r["launches_per_run"] = per_run[key]
+    summary["ed_shapes"] = [
+        {k: r[k] for k in ("name", "shape", "ms", "device_ms", "plain_ms", "library_ms",
+                           "bound_ms", "launches_per_run")}
+        for r in rows + shapes if "launches_per_run" in r]
+    log(f"[timing] ED kernels by shape (ms host loop / device, bound, launches per run): "
+        + "; ".join(f"{r['name']} {r['shape']}: {r['ms']:.4f} / {r['device_ms']:.4f}, "
+                    f"{r['bound_ms']:.4f}, {r['launches_per_run']}"
+                    for r in summary["ed_shapes"]))
     if args.profile:
         phase_profile(data, queries, local)
     del data, queries, local, answers
@@ -1082,7 +1235,8 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "bytes", "ops")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
+                                   "device_ms": r.get("device_ms")} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -22,6 +22,8 @@ reset on); bf16 r/k/v are widened exactly and the state holds 1e-4, while
 the bf16 output, rounded from float32 sums in another order, holds the
 bfloat16 tolerance.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -91,6 +93,63 @@ def test_ed_kernels_match_plain(cuda, q, n, length):
         assert torch.equal(amin.cpu(), want_a.cpu())
 
 
+# Every edge of ed_matrix v2's tiling: Q around its 128-row query tiles, N
+# around its 32- and 128-row series tiles and the grid size that switches
+# between them, n around its 32-wide k-step (odd n takes the 4-byte copy
+# path for float32 and the 2-byte one for bf16).
+_TILE_EDGES = list(itertools.product((1, 127, 129), (1, 31, 4096, 4097, 131073),
+                                     (1, 7, 255, 256)))
+
+
+@pytest.mark.parametrize("q,n,length", _TILE_EDGES)
+def test_ed_matrix_tile_edges(cuda, q, n, length):
+    """``ed_matrix`` over float32 and bf16 series against the plain version,
+    on contiguous tensors and on views whose base is one row in (so only
+    4-byte aligned where 4 * length is not a multiple of 16)."""
+    qa = randn(q * 7 + n, q + 1, length).to(cuda)
+    sa = randn(q + n * 3, n + 1, length).to(cuda)
+    sb = sa.to(torch.bfloat16)
+    for qv, sv, bv in ((qa[:q], sa[:n], sb[:n]), (qa[1:], sa[1:], sb[1:])):
+        before = ked.ed_matrix.launches
+        assert_close(ked.ed_matrix(qv, sv), tref.ed_matrix_ref(qv, sv))
+        assert ked.ed_matrix.launches == before + 1
+        assert_close(ked.ed_matrix(qv, bv), tref.ed_matrix_ref(qv, bv), "bfloat16")
+
+
+# The shapes chip_smoke.py holds to the witness (its phases 3 and 6).
+_WITNESS_SHAPES = [(128, 4096, 256), (128, 131072, 256), (1, 1, 1), (1, 100, 128),
+                   (5, 77, 48), (8, 129, 33), (130, 4097, 256), (127, 31, 7),
+                   (1, 4097, 256), (129, 131073, 255)]
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "decode"])
+@pytest.mark.parametrize("q,n,length", _WITNESS_SHAPES)
+def test_ed_matrix_witness_is_ed_min(cuda, q, n, length, kind):
+    """The arithmetic witness: ``ed_min`` runs the other tile core of
+    ``ed.cu`` on the same formula and fmaf order, so each row's minimum of
+    ``ed_matrix`` (float32 or bf16 series) or ``decode_bf16_ed_matrix`` equals
+    ``ed_min``'s distance as a value, and the lowest index attaining it
+    equals ``ed_min``'s index (the decode against ``ed_min`` over the
+    payload's bf16 rows)."""
+    queries, enc = bf16_block(q * 11 + n + length, q, n, length, cuda)
+    rows = tref.decode_bf16_ref(enc[:, :-4]) if kind == "bf16" else None
+    if kind == "f32":
+        series = randn(n * 5 + length, n, length).to(cuda)
+        mat = ked.ed_matrix(queries, series)
+    elif kind == "bf16":
+        series = rows.to(torch.bfloat16)
+        mat = ked.ed_matrix(queries, series)
+    else:
+        payload = enc[:, :-4]
+        mat = ked.decode_bf16_ed_matrix(queries, payload)[0]
+        series = payload.contiguous().view(torch.bfloat16)
+    dmin, amin = ked.ed_min(queries, series)
+    low = mat.min(dim=1).values
+    first = (mat == low[:, None]).int().argmax(dim=1)
+    assert torch.equal(low, dmin)
+    assert torch.equal(first, amin.long())
+
+
 def test_ed_min_ties_and_all_inf_rows(cuda):
     dmin, amin = ked.ed_min(torch.zeros(4, 16, device=cuda), torch.ones(300, 16, device=cuda))
     assert bool((amin == 0).all()) and bool((dmin == 16).all())
@@ -153,7 +212,8 @@ def bf16_block(seed, q, b, n, cuda):
 
 
 @pytest.mark.parametrize("q,b,n", [(1, 1, 1), (1, 77, 33), (128, 1000, 256),
-                                   (128, 131, 255), (5, 4097, 64), (128, 64, 7)])
+                                   (128, 131, 255), (5, 4097, 64), (128, 64, 7)]
+                         + _TILE_EDGES)
 def test_decode_bf16_ed_matrix_matches_plain(cuda, q, b, n):
     queries, enc = bf16_block(q * 7 + b, q, b, n, cuda)
     payload = enc[:, :-4]
@@ -169,6 +229,20 @@ def test_decode_bf16_ed_matrix_matches_plain(cuda, q, b, n):
     assert_close(sn, TS.fixed_order_sum(rows * rows))
     again, sn_again = ked.decode_bf16_ed_matrix(queries, payload)
     assert torch.equal(again, got) and torch.equal(sn_again, sn)
+
+
+@pytest.mark.parametrize("n", [1, 7, 255, 256])
+def test_decode_bf16_ed_matrix_view_one_row_in(cuda, n):
+    """A payload view whose base is one encoded row in (2n + 4 bytes: only
+    2-byte aligned for odd n, 4-byte for even n) and a query view one row
+    in, at both tile shapes."""
+    for b in (4097, 131073):
+        queries, enc = bf16_block(n + b, 130, b + 1, n, cuda)
+        payload = enc[1:, :-4]
+        got, sn = ked.decode_bf16_ed_matrix(queries[1:], payload)
+        assert_close(got, tref.decode_bf16_ed_matrix_ref(queries[1:], payload))
+        rows = tref.decode_bf16_ref(payload)
+        assert_close(sn, TS.fixed_order_sum(rows * rows))
 
 
 def test_decode_bf16_ed_matrix_allocates_only_its_output(cuda):
