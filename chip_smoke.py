@@ -31,9 +31,10 @@ Phases (any failure ends the run with a non-zero exit):
    host loop, as the engine launches them), and the bound;
    ``ed_matrix`` and ``decode_bf16_ed_matrix`` (on a strided view of a real
    encoded block, with its error against a float64 evaluation) at 4096 and
-   131,072 rows, also timed on the device alone by a CUDA graph
-   (``device_ms``), with their launches per run at each shape and the ED
-   witness;
+   131,072 rows, and ``lb_sax_matrix`` at Q=1 over the whole LSD sidecar
+   and at Q=128 over one 131,072-row LSD block, also timed on the device
+   alone by a CUDA graph (``device_ms``), with their launches per run at
+   each shape, and the ED witness;
 7. the card's answers against the CPU's on a small input (the CPU path is
    the one the test suite holds against the JAX reference);
 8. ``wkv6`` against its plain version: the LM path's prefill shape
@@ -59,6 +60,7 @@ null where only the host loop timed a kernel); then the card's
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -278,16 +280,22 @@ def phase_adversarial():
                             torch.full((300, 16), -2e19, device=dev))
     check(bool(torch.isinf(dmin).all()) and bool((amin == 0).all()),
           "ed_min all-inf row -> (inf, 0)")
-    # lb_sax: ragged N, m in {8, 16}, several alphabets, extreme PAA
+    # lb_sax: ragged N, m in {8, 16}, several alphabets, extreme PAA, and
+    # every edge of v2's tiling (Q around its unrolled query loop and its
+    # 128-query passes, N around its blocks of 256 threads x 2 series);
+    # equal in every bit, as int32 words
+    edges = itertools.product((1, 7, 8, 9, 127, 128, 129), (1, 255, 256, 257, 131073),
+                              (8, 16), (2, 4, 16, 256))
     for (q, n, m, alphabet) in [(1, 1, 16, 256), (5, 77, 16, 256), (3, 130, 8, 64),
-                                (9, 5001, 16, 16), (1, 70001, 16, 256)]:
+                                (9, 5001, 16, 16), (1, 70001, 16, 256), *edges]:
         length = 4 * m
-        q_paa = S.paa(randn(q, length), m)
-        codes = S.isax(randn(n, length), m, alphabet)
+        q_paa = S.paa(randn(q, length, scale=3.0), m)
+        codes = S.isax(randn(n, length, scale=3.0), m, alphabet)
         got = klb.lb_sax_matrix(q_paa, codes, length, alphabet)
         want = ref.lb_sax_matrix_ref(q_paa, codes, length, alphabet)
         assert_close(got, want, "float32", f"lb_sax {q}x{n} m={m} a={alphabet}")
-        check(torch.equal(got, want), f"lb_sax {q}x{n}: kernel and plain version differ in bits")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"lb_sax {q}x{n} m={m} a={alphabet}: kernel and plain version differ in bits")
     q_paa = torch.full((2, 16), 1e15, device=dev)
     codes = S.isax(randn(7, 64), 16)
     check(torch.equal(klb.lb_sax_matrix(q_paa, codes, 64),
@@ -564,9 +572,10 @@ def phase_disk_kernels(queries, blocks, launches):
     bucket against one streamed 131,072-row bf16 block, read in place at its
     row pitch) and at ``ooc-local``'s (4096 rows of it, a leaf padded to
     ``max_leaf``), against its plain version, the library call, a float64
-    evaluation and the ed_min witness; then ``lb_sax_matrix`` and ``ed_min``
-    at the out-of-core shapes, against their plain versions (times logged,
-    for PERF.md). Returns (the kernel's row, the rows of other shapes)."""
+    evaluation and the ed_min witness; then ``lb_sax_matrix`` (``ooc-local``'s
+    LSD filter of one block, also timed by a CUDA graph) and ``ed_min`` at
+    the out-of-core shapes, against their plain versions (times logged, for
+    PERF.md). Returns (the kernel's row, the rows of other shapes)."""
     import torch
     from repro_torch.core import summaries as S
     from repro_torch.kernels import ed as ked, lb_sax as klb, ref
@@ -636,11 +645,16 @@ def phase_disk_kernels(queries, blocks, launches):
     assert_close(got, want, "float32", "lb_sax ooc shape")
     check(torch.equal(got, want), "lb_sax ooc shape: bits differ")
     del got, want
-    extra.append(dict(name="lb_sax_matrix", shape=[bucket, lsd.shape[0], lsd.shape[1]],
-                      ms=time_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=20,
-                                 warmup=2),
-                      bytes=q_paa.numel() * 4 + lsd.numel() + bucket * lsd.shape[0] * 4,
-                      ops=bucket * lsd.shape[0] * (6 * lsd.shape[1] + 1)))
+    lb_row = dict(name="lb_sax_matrix", shape=[bucket, lsd.shape[0], lsd.shape[1]],
+                  ms=time_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=20, warmup=2),
+                  device_ms=device_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=100),
+                  plain_ms=time_ms(lambda: ref.lb_sax_matrix_ref(q_paa, lsd, n), reps=2),
+                  library_ms=None,
+                  bytes=q_paa.numel() * 4 + lsd.numel() + bucket * lsd.shape[0] * 4,
+                  ops=bucket * lsd.shape[0] * (6 * lsd.shape[1] + 1))
+    _bound(lb_row)
+    log_timing(lb_row)
+    shapes.append(lb_row)
     dmin, amin = ked.ed_min(qb, lrd, valid_n=lrd.shape[0])
     d_ref = ref.ed_matrix_ref(qb, lrd)
     want_d, want_a = torch.min(d_ref, dim=1)
@@ -697,6 +711,7 @@ def phase_kernel_timing(data, queries, local, launches):
         shape=[1, lsd.shape[0], m], launches=launches["lb_sax_matrix"],
         max_abs_err=err,
         ms=time_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=50, warmup=3),
+        device_ms=device_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=200),
         plain_ms=time_ms(lambda: ref.lb_sax_matrix_ref(q_paa, lsd, n), reps=5),
         library_ms=None, bytes=nbytes, ops=ops))
 
@@ -1190,12 +1205,18 @@ def main(argv=None) -> int:
     rows.append(disk_row)
     shapes += disk_shapes
     del blocks
-    # launches per run of the redesigned ED kernels at each timed shape:
+    # launches per run of the redesigned kernels at each timed shape:
     # ed_matrix runs on 4096-row blocks only (the k>1 scan, ooc-scan raw
     # k>1); decode_bf16_ed_matrix on 131,072-row blocks in ooc-scan and on
-    # leaves padded to max_leaf rows in ooc-local
+    # leaves padded to max_leaf rows in ooc-local; lb_sax_matrix once a
+    # query over the whole LSD sidecar in local (phase 4) and on 131,072-row
+    # LSD blocks (the last of each call partial) in ooc-local
     calls = summary["disk"]["calls"]
     per_run = {
+        ("lb_sax_matrix", local.index.layout.lsd.shape[0]): launches["lb_sax_matrix"],
+        ("lb_sax_matrix", 1 << 17): sum(
+            c["launches"]["lb_sax_matrix"] for t, c in calls.items()
+            if t.startswith("ooc-local")),
         ("ed_matrix", 4096): launches["ed_matrix"] + sum(
             c["launches"]["ed_matrix"] for c in calls.values()),
         ("ed_matrix", 1 << 17): 0,
@@ -1210,14 +1231,14 @@ def main(argv=None) -> int:
         key = (r["name"], r["shape"][1])
         if key in per_run:
             r["launches_per_run"] = per_run[key]
-    summary["ed_shapes"] = [
+    summary["kernel_shapes"] = [
         {k: r[k] for k in ("name", "shape", "ms", "device_ms", "plain_ms", "library_ms",
                            "bound_ms", "launches_per_run")}
         for r in rows + shapes if "launches_per_run" in r]
-    log(f"[timing] ED kernels by shape (ms host loop / device, bound, launches per run): "
+    log(f"[timing] kernels by shape (ms host loop / device, bound, launches per run): "
         + "; ".join(f"{r['name']} {r['shape']}: {r['ms']:.4f} / {r['device_ms']:.4f}, "
                     f"{r['bound_ms']:.4f}, {r['launches_per_run']}"
-                    for r in summary["ed_shapes"]))
+                    for r in summary["kernel_shapes"]))
     if args.profile:
         phase_profile(data, queries, local)
     del data, queries, local, answers

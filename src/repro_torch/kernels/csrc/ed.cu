@@ -23,7 +23,7 @@
 //
 // v1 (one 64x64 tile per 256-thread block, 16-wide k-steps, scalar loads)
 // ran at 19-21% of the bound at 4096 rows and 32-33% at 131,072 (device
-// time, tools/ed_ab.py, H100 80GB HBM3 at 700 W). v2 answers its four
+// time, tools/kernel_ab.py, H100 80GB HBM3 at 700 W). v2 answers its four
 // limits:
 // 1. Grid fill: tiles are chosen by shape. A grid of at least two waves of
 //    128x128 tiles (Big: 8x8 a thread, 256 threads) runs those; smaller
@@ -289,7 +289,7 @@ struct TileCfg {
   static_assert(BM + BN <= THREADS, "one norm row per thread");
 };
 
-// Chosen on the H100 with tools/ed_ab.py: Big for grids of at least two
+// Chosen on the H100 with tools/kernel_ab.py: Big for grids of at least two
 // waves of its 132 SMs (Q=128 x 131,072: 1024 blocks), Small below (Q=128 x
 // 4096: 128 blocks).
 using Big = TileCfg<128, 128, 8, 8, 4>;

@@ -158,13 +158,31 @@ def test_ed_min_ties_and_all_inf_rows(cuda):
     assert bool(torch.isinf(dmin).all()) and bool((amin == 0).all())
 
 
+# Every edge of lb_sax_matrix v2's tiling: Q around its unrolled query
+# loop and its 128-query passes, N around its 256-thread blocks of 2 series
+# a thread, both segment counts and several alphabets.
+_LB_EDGES = list(itertools.product((1, 7, 8, 9, 127, 128, 129), (1, 255, 256, 257, 131073),
+                                   (8, 16), (2, 4, 16, 256)))
+
+
 @pytest.mark.parametrize("q,n,m,alphabet", [(1, 1, 16, 256), (5, 77, 16, 256),
-                                            (3, 130, 8, 64), (1, 70001, 16, 256)])
+                                            (3, 130, 8, 64), (1, 70001, 16, 256)]
+                         + _LB_EDGES)
 def test_lb_sax_kernel_matches_plain_bitwise(cuda, q, n, m, alphabet):
-    q_paa = TS.paa(randn(3, q, 4 * m).to(cuda), m)
-    codes = TS.isax(randn(4, n, 4 * m).to(cuda), m, alphabet)
-    got = klb.lb_sax_matrix(q_paa, codes, 4 * m, alphabet)
-    assert torch.equal(got, tref.lb_sax_matrix_ref(q_paa, codes, 4 * m, alphabet))
+    """Equal to the plain version in every bit (int32 words, so -0.0 and
+    +0.0 differ), on contiguous inputs, on views one row in and with PAA
+    rows at +-1e15; one launch per call. Series scaled by 3 so the codes
+    reach the alphabet's outer cells."""
+    q_paa = TS.paa(randn(3, q + 1, 4 * m).to(cuda) * 3, m)
+    codes = TS.isax(randn(4, n + 1, 4 * m).to(cuda) * 3, m, alphabet)
+    big = q_paa[1:].clone()
+    big[::2], big[1::2] = 1e15, -1e15
+    for qv, cv in ((q_paa[:q], codes[:n]), (q_paa[1:], codes[1:]), (big, codes[:n])):
+        before = klb.lb_sax_matrix.launches
+        got = klb.lb_sax_matrix(qv, cv, 4 * m, alphabet)
+        assert klb.lb_sax_matrix.launches == before + 1
+        want = tref.lb_sax_matrix_ref(qv, cv, 4 * m, alphabet)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_build_equals_cpu_build(cuda):
