@@ -11,12 +11,15 @@ Phases (any failure ends the run with a non-zero exit):
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels vs plain versions at adversarial shapes (ragged N and n,
    ``valid_n`` masking, ties, an all-inf row, bf16 series, a bf16 payload at
-   the codec's pitch), and the ED witness: the row minima and first argmins
-   of ``ed_matrix`` and ``decode_bf16_ed_matrix`` equal ``ed_min``'s;
+   the codec's pitch, views one row in, ``ed_min``'s resident-query state at
+   the edges of its fit), ``ed_min`` and ``ed_matrix`` equal to the exact
+   fma references bit for bit, and the ED witness: the row minima and first
+   argmins of ``ed_matrix`` and ``decode_bf16_ed_matrix`` equal ``ed_min``'s;
 4. the main path at a real size: the paper's Synth random walks (length
-   256), a Hercules index with 4096-series leaves, 100 queries at the "5%"
-   hardness answered for k=1 and k=10 through ``QueryEngine`` over the
-   ``local`` and ``scan`` backends (``kernel_mode="auto"``), held against a
+   256; the card's draw held bit for bit to the CPU's), a Hercules index
+   with 4096-series leaves, 100 queries at the "5%" hardness answered for
+   k=1 and k=10 through ``QueryEngine`` over the ``local`` and ``scan``
+   backends (``kernel_mode="auto"``), held against a
    brute-force difference-form scan on the card; every kernel's launch
    counter must have risen during this phase;
 5. the disk path at the same data scale: a chunked build straight to a
@@ -31,10 +34,13 @@ Phases (any failure ends the run with a non-zero exit):
    host loop, as the engine launches them), and the bound;
    ``ed_matrix`` and ``decode_bf16_ed_matrix`` (on a strided view of a real
    encoded block, with its error against a float64 evaluation) at 4096 and
-   131,072 rows, and ``lb_sax_matrix`` at Q=1 over the whole LSD sidecar
-   and at Q=128 over one 131,072-row LSD block, also timed on the device
-   alone by a CUDA graph (``device_ms``), with their launches per run at
-   each shape, and the ED witness;
+   131,072 rows, ``lb_sax_matrix`` at Q=1 over the whole LSD sidecar
+   and at Q=128 over one 131,072-row LSD block, and ``ed_min`` over the
+   whole collection (the k=1 scan) and over one 131,072-row block (the
+   out-of-core k=1 fold), also timed on the device alone by a CUDA graph
+   (``device_ms``), with their launches per run at each shape; ``ed_min``
+   and ``ed_matrix`` held bit for bit to the exact fma references at both
+   of ``ed_min``'s shapes and at 131,072 rows, and the ED witness;
 7. the card's answers against the CPU's on a small input (the CPU path is
    the one the test suite holds against the JAX reference);
 8. ``wkv6`` against its plain version: the LM path's prefill shape
@@ -53,7 +59,7 @@ Phases (any failure ends the run with a non-zero exit):
    64-token prefill and 4 decode steps, logits within 1e-4, equal tokens.
 
 The line before the last two is ``{"kernels": [...]}`` (``device_ms`` is
-null where only the host loop timed a kernel); then the card's
+null where only the host loop timed a kernel: ``wkv6``); then the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -154,13 +160,15 @@ def bf16_payload(rows):
 
 
 def hold_witness(queries, rows=None, payload=None, what: str = "") -> None:
-    """The arithmetic witness of ed.cu's two tile cores: each row's minimum
+    """The ED witness, now a check of ``ed_min``'s fold: each row's minimum
     of ``ed_matrix`` (over float32 ``rows`` and their bf16 rounding) and of
     ``decode_bf16_ed_matrix`` (over ``payload``) equals ``ed_min``'s
     distance over the same series, as a value, and the lowest index that
-    attains it equals ``ed_min``'s index. ``ed_min`` runs the other tile
-    core on the same formula and fmaf order, so any change in a bit of a
-    row's minimum shows."""
+    attains it equals ``ed_min``'s index. All three run one tile core of
+    ed.cu, so this holds the reduction that only ``ed_min`` does (per
+    thread, across lanes and warps, across tiles in its resident-query
+    state, and the atomicMin words) against a plain row minimum; the core's
+    arithmetic itself is held by :func:`hold_fma_bits`."""
     import torch
     from repro_torch.kernels import ed as ked
     pairs = []
@@ -179,6 +187,32 @@ def hold_witness(queries, rows=None, payload=None, what: str = "") -> None:
                                       f"from ed_min's distance")
         check(torch.equal(first, amin.long()), f"witness {name} {what}: the first argmin "
                                                f"differs from ed_min's index")
+
+
+def hold_fma_bits(queries, series, what: str, valid_ns=None, matrix: bool = True) -> None:
+    """``ed_min`` (at each ``valid_n`` of ``valid_ns``, default all rows) and,
+    with ``matrix``, ``ed_matrix`` over ``series`` (float32 or bf16) equal
+    the exact fma references (``kernels/ref.py``: the kernels' fmaf chains
+    through a correctly rounded fmaf built from float64 operations) in
+    every bit: distances as int32 words, indices exactly."""
+    import torch
+    from repro_torch.kernels import ed as ked, ref
+
+    def words(x):
+        return x.contiguous().view(torch.int32)
+
+    for valid in valid_ns or (series.shape[0],):
+        dmin, amin = ked.ed_min(queries, series, valid_n=valid)
+        want_d, want_a = ref.ed_min_fma_ref(queries, series, valid_n=valid)
+        bad_d = int((words(dmin) != words(want_d)).sum())
+        bad_a = int((amin != want_a).sum())
+        check(bad_d == 0 and bad_a == 0,
+              f"ed_min {what} valid_n {valid}: {bad_d} distances and {bad_a} indices "
+              f"differ from ed_min_fma_ref")
+    if matrix:
+        got = ked.ed_matrix(queries, series)
+        bad = int((words(got) != words(ref.ed_matrix_fma_ref(queries, series))).sum())
+        check(bad == 0, f"ed_matrix {what}: {bad} outputs differ from ed_matrix_fma_ref")
 
 
 def assert_close(got, want, dtype: str, what: str) -> float:
@@ -264,9 +298,25 @@ def phase_adversarial():
         assert_close(sn, S.fixed_order_sum(rows * rows), "float32",
                      f"decode_bf16_ed_matrix row norms {q}x{n}x{length}")
         hold_witness(qa, sa, payload, f"{q}x{n}x{length}")
+        for tag, (qv, sv) in {"": (qa, sa), " +1 row": (qa[1:], sa[1:])}.items():
+            if qv.shape[0] and sv.shape[0]:
+                hold_fma_bits(qv, sv, f"f32 {q}x{n}x{length}{tag}",
+                              (sv.shape[0], sv.shape[0] // 2))
+                hold_fma_bits(qv, sv.to(torch.bfloat16), f"bf16 {q}x{n}x{length}{tag}")
+    # ed_min's resident-query state at the edges of its fit: Q = 128 and
+    # 129, n = 320 (float32) and 384 (bf16), the largest that fit, and one
+    # past them
+    for (q, n, length) in [(128, 40000, 320), (129, 40000, 320), (128, 40000, 321),
+                           (128, 40000, 384), (128, 40000, 385)]:
+        qa, sa = randn(q, length), randn(n, length)
+        hold_fma_bits(qa, sa, f"f32 {q}x{n}x{length}", (n, n // 2), matrix=False)
+        hold_fma_bits(qa, sa.to(torch.bfloat16), f"bf16 {q}x{n}x{length}", (n, n // 2),
+                      matrix=False)
     # ed_min: ragged shapes, valid_n masking, ties, all-inf rows
     for (q, n, length) in [(1, 1, 1), (3, 13, 64), (5, 77, 48), (70, 5000, 256)]:
         qa, sa = randn(q, length), randn(n, length)
+        hold_fma_bits(qa, sa, f"f32 {q}x{n}x{length}", (n, max(1, n // 2), 0),
+                      matrix=False)
         for valid in (n, max(1, n // 2)):
             dmin, amin = ked.ed_min(qa, sa, valid_n=valid)
             want_d, want_a = ref.ed_min_ref(qa, sa, valid_n=valid)
@@ -280,6 +330,7 @@ def phase_adversarial():
                             torch.full((300, 16), -2e19, device=dev))
     check(bool(torch.isinf(dmin).all()) and bool((amin == 0).all()),
           "ed_min all-inf row -> (inf, 0)")
+    hold_fma_bits(torch.zeros(4, 16, device=dev), torch.ones(200, 16, device=dev), "ties")
     # lb_sax: ragged N, m in {8, 16}, several alphabets, extreme PAA, and
     # every edge of v2's tiling (Q around its unrolled query loop and its
     # 128-query passes, N around its blocks of 256 threads x 2 series);
@@ -302,7 +353,9 @@ def phase_adversarial():
                       ref.lb_sax_matrix_ref(q_paa, codes, 64)), "lb_sax extreme PAA")
     torch.cuda.synchronize()
     log("[kernels] adversarial shapes: ed_matrix (f32, bf16), decode_bf16_ed_matrix, "
-        "ed_min, lb_sax agree with their plain versions; the row minima and first "
+        "ed_min, lb_sax agree with their plain versions; ed_min and ed_matrix equal "
+        "the exact fma references bit for bit (also one row in, and ed_min's "
+        "resident-query state at the edges of its fit); the row minima and first "
         "argmins of ed_matrix and decode_bf16_ed_matrix equal ed_min's")
 
 
@@ -329,16 +382,27 @@ def phase_main(num_series: int, num_queries: int):
     from repro_torch.core.index import IndexConfig
     from repro_torch.core.search import SearchConfig
     from repro_torch.core.tree import BuildConfig
-    from repro_torch.data.synthetic import make_query_workload, random_walks
+    from repro_torch.data.synthetic import CHUNK_ROWS, make_query_workload, random_walks
 
     length = 256
+    # the draw does not depend on the device: a few chunks and a ragged
+    # tail, and queries from them, made for the card and for the CPU
+    num = 3 * CHUNK_ROWS + 1000
+    card, host = (random_walks(num, length, seed=5, device=d) for d in ("cuda", "cpu"))
+    check(torch.equal(card.cpu(), host), "random_walks: the card's draw differs from the CPU's")
+    check(torch.equal(make_query_workload(card, 50, "5%", seed=6).cpu(),
+                      make_query_workload(host, 50, "5%", seed=6)),
+          "make_query_workload: the card's queries differ from the CPU's")
+    del card, host
+    log(f"[main] random_walks ({num} x {length}) and make_query_workload give the same "
+        f"bits on the card and on the CPU")
     t0 = time.perf_counter()
     data = random_walks(num_series, length, seed=0)
     queries = make_query_workload(data, num_queries, "5%", seed=1)
     torch.cuda.synchronize()
     log(f"[main] data {num_series} x {length} float32 "
-        f"({num_series * length * 4 / 2**30:.2f} GiB) made in "
-        f"{time.perf_counter() - t0:.2f}s")
+        f"({num_series * length * 4 / 2**30:.2f} GiB) drawn on the host in chunks of "
+        f"{CHUNK_ROWS} rows into the card in {time.perf_counter() - t0:.2f}s")
     search = SearchConfig(kernel_mode="auto")
     icfg = IndexConfig(build=BuildConfig(leaf_capacity=4096), search=search)
 
@@ -638,7 +702,6 @@ def phase_disk_kernels(queries, blocks, launches):
 
     # the slice-1 kernels at the shapes the out-of-core path gives them,
     # held against their plain versions there and timed
-    extra = []
     q_paa = S.paa(qb, lsd.shape[1])
     got = klb.lb_sax_matrix(q_paa, lsd, n)
     want = ref.lb_sax_matrix_ref(q_paa, lsd, n)
@@ -652,28 +715,30 @@ def phase_disk_kernels(queries, blocks, launches):
                   library_ms=None,
                   bytes=q_paa.numel() * 4 + lsd.numel() + bucket * lsd.shape[0] * 4,
                   ops=bucket * lsd.shape[0] * (6 * lsd.shape[1] + 1))
-    _bound(lb_row)
-    log_timing(lb_row)
     shapes.append(lb_row)
     dmin, amin = ked.ed_min(qb, lrd, valid_n=lrd.shape[0])
     d_ref = ref.ed_matrix_ref(qb, lrd)
     want_d, want_a = torch.min(d_ref, dim=1)
-    assert_close(dmin, want_d, "float32", "ed_min ooc shape")
+    err = assert_close(dmin, want_d, "float32", "ed_min ooc shape")
     dec = decisive_rows(d_ref)
     dec[queries.shape[0]:] = False          # bucket padding rows tie everywhere
     check(torch.equal(amin[dec].long(), want_a[dec]), "ed_min ooc shape: argmin differs")
     del d_ref
-    extra.append(dict(name="ed_min", shape=[bucket, lrd.shape[0], n],
-                      ms=time_ms(lambda: ked.ed_min(qb, lrd, valid_n=lrd.shape[0]),
-                                 reps=20, warmup=2),
-                      bytes=(qb.numel() + lrd.numel()) * 4 + bucket * 8,
-                      ops=2 * bucket * lrd.shape[0] * n))
-    for r in extra:
+    hold_fma_bits(qb, lrd, f"ooc shape {bucket}x{lrd.shape[0]}x{n}")
+    hold_fma_bits(qb, payload.contiguous().view(torch.bfloat16),
+                  f"bf16 ooc shape {bucket}x{num}x{n}")
+    check(torch.equal(ked.decode_bf16_ed_matrix(qb, payload)[0].view(torch.int32),
+                      ref.ed_matrix_fma_ref(qb, decoded).view(torch.int32)),
+          "decode_bf16_ed_matrix ooc shape: outputs differ from ed_matrix_fma_ref")
+    log(f"[fma] ed_min and ed_matrix over a {lrd.shape[0]}-row LRD block and its bf16 "
+        f"encoding, and decode_bf16_ed_matrix: equal the fma references bit for bit")
+    min_row = ed_min_row(qb, lrd, launches["ed_min"], err, reps=20, device_reps=40,
+                         plain_reps=2, library_reps=10)
+    for r in (lb_row, min_row):
         _bound(r)
-        log(f"[timing] ooc shape {r['name']} {r['shape']}: agrees with its plain "
-            f"version; kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
-    return row, shapes
+    log_timing(lb_row)
+    log_timing(min_row)
+    return row, min_row, shapes
 
 
 def _bound(r: dict) -> None:
@@ -726,16 +791,12 @@ def phase_kernel_timing(data, queries, local, launches):
           "ed_min main shape: fewer than 90% of the queries are decisive")
     check(torch.equal(amin[dec].long(), want_a[dec]), "ed_min main shape: argmin differs")
     del d_ref
-    lib_min = lambda: torch.cdist(qb, data, compute_mode="use_mm_for_euclid_dist").square().min(1)
-    rows.append(dict(
-        name="ed_min", route="cuda", source="src/repro_torch/kernels/csrc/ed.cu",
-        replaces="src/repro/kernels/ed.py:141", shape=[bucket, num, n],
-        launches=launches["ed_min"], max_abs_err=err,
-        ms=time_ms(lambda: ked.ed_min(qb, data, valid_n=num), reps=5),
-        plain_ms=time_ms(lambda: ref.ed_min_ref(qb, data, valid_n=num), reps=1),
-        library_ms=time_ms(lib_min, reps=3),
-        bytes=(qb.numel() + data.numel()) * 4 + bucket * 8,
-        ops=2 * bucket * num * n))
+    t0 = time.perf_counter()
+    hold_fma_bits(qb, data, f"{bucket}x{num}x{n}", matrix=False)
+    log(f"[fma] ed_min {bucket}x{num}x{n}: distances and indices equal ed_min_fma_ref bit "
+        f"for bit (reference {time.perf_counter() - t0:.1f}s)")
+    rows.append(ed_min_row(qb, data, launches["ed_min"], err, reps=5, device_reps=5,
+                           plain_reps=1, library_reps=3))
 
     # ed_matrix: the k>1 scan's shape (the query bucket against one 4096-row
     # scan block; ooc-scan raw k>1 folds the same), and 131,072 rows (an
@@ -751,6 +812,11 @@ def phase_kernel_timing(data, queries, local, launches):
                            f"ed_matrix {bucket}x{num_rows}")
         del got
         hold_witness(qb, blk, None, f"{bucket}x{num_rows}x{n}")
+        if not small:
+            hold_fma_bits(qb, blk, f"{bucket}x{num_rows}x{n}")
+            hold_fma_bits(qb, blk.to(torch.bfloat16), f"bf16 {bucket}x{num_rows}x{n}")
+            log(f"[fma] ed_matrix (f32, bf16) and ed_min {bucket}x{num_rows}x{n}: equal "
+                f"the fma references bit for bit")
         lib_mat = lambda: torch.cdist(qb, blk, compute_mode="use_mm_for_euclid_dist").square()
         (rows if small else extra).append(dict(
             name="ed_matrix", route="cuda", source="src/repro_torch/kernels/csrc/ed.cu",
@@ -770,6 +836,28 @@ def phase_kernel_timing(data, queries, local, launches):
         _bound(r)
         log_timing(r)
     return rows, extra
+
+
+def ed_min_row(qb, series, launches: int, err: float, reps: int, device_reps: int,
+               plain_reps: int, library_reps: int) -> dict:
+    """A kernels-line row of ``ed_min`` over all of ``series`` (float32):
+    host-loop, CUDA-graph, plain-version and library (``cdist(...).square()
+    .min(1)``) times, and the bytes and operations of its bound."""
+    import torch
+    from repro_torch.kernels import ed as ked, ref
+
+    num, n = series.shape
+    run = lambda: ked.ed_min(qb, series, valid_n=num)
+    lib = lambda: torch.cdist(qb, series, compute_mode="use_mm_for_euclid_dist").square().min(1)
+    return dict(
+        name="ed_min", route="cuda", source="src/repro_torch/kernels/csrc/ed.cu",
+        replaces="src/repro/kernels/ed.py:141", shape=[qb.shape[0], num, n],
+        launches=launches, max_abs_err=err,
+        ms=time_ms(run, reps=reps, warmup=2), device_ms=device_ms(run, reps=device_reps),
+        plain_ms=time_ms(lambda: ref.ed_min_ref(qb, series, valid_n=num), reps=plain_reps),
+        library_ms=time_ms(lib, reps=library_reps, warmup=1),
+        bytes=(qb.numel() + series.numel()) * 4 + qb.shape[0] * 8,
+        ops=2 * qb.shape[0] * num * n)
 
 
 def log_timing(r: dict) -> None:
@@ -1192,17 +1280,25 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
+    phase_s: dict = {}
+
+    def timed(label, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[label] = round(time.perf_counter() - t0, 1)
+        return out
 
     name, smi = phase_device()
-    phase_build()
-    phase_adversarial()
-    data, queries, local, launches, answers, summary = phase_main(args.num_series,
-                                                                  args.queries)
-    disk_launches, blocks, summary["disk"] = phase_disk(data, queries, local, answers,
-                                                        args.disk_dir, args.profile)
-    rows, shapes = phase_kernel_timing(data, queries, local, launches)
-    disk_row, disk_shapes = phase_disk_kernels(queries, blocks, disk_launches)
-    rows.append(disk_row)
+    timed("build", phase_build)
+    timed("adversarial", phase_adversarial)
+    data, queries, local, launches, answers, summary = timed(
+        "main", phase_main, args.num_series, args.queries)
+    disk_launches, blocks, summary["disk"] = timed(
+        "disk", phase_disk, data, queries, local, answers, args.disk_dir, args.profile)
+    rows, shapes = timed("kernel_timing", phase_kernel_timing, data, queries, local, launches)
+    disk_row, ooc_min_row, disk_shapes = timed("disk_kernels", phase_disk_kernels, queries,
+                                               blocks, disk_launches)
+    rows += [disk_row, ooc_min_row]
     shapes += disk_shapes
     del blocks
     # launches per run of the redesigned kernels at each timed shape:
@@ -1220,6 +1316,8 @@ def main(argv=None) -> int:
         ("ed_matrix", 4096): launches["ed_matrix"] + sum(
             c["launches"]["ed_matrix"] for c in calls.values()),
         ("ed_matrix", 1 << 17): 0,
+        ("ed_min", data.shape[0]): launches["ed_min"],
+        ("ed_min", 1 << 17): disk_launches["ed_min"],
         ("decode_bf16_ed_matrix", 1 << 17): sum(
             c["launches"]["decode_bf16_ed_matrix"] for t, c in calls.items()
             if t.startswith("ooc-scan")),
@@ -1229,7 +1327,7 @@ def main(argv=None) -> int:
     }
     for r in rows + shapes:
         key = (r["name"], r["shape"][1])
-        if key in per_run:
+        if key in per_run and "launches_per_run" not in r:
             r["launches_per_run"] = per_run[key]
     summary["kernel_shapes"] = [
         {k: r[k] for k in ("name", "shape", "ms", "device_ms", "plain_ms", "library_ms",
@@ -1240,10 +1338,10 @@ def main(argv=None) -> int:
                     f"{r['bound_ms']:.4f}, {r['launches_per_run']}"
                     for r in summary["kernel_shapes"]))
     if args.profile:
-        phase_profile(data, queries, local)
+        timed("profile", phase_profile, data, queries, local)
     del data, queries, local, answers
     torch.cuda.empty_cache()
-    phase_cpu_agreement()
+    timed("cpu_agreement", phase_cpu_agreement)
     t_lm = time.perf_counter()
     wkv_row = phase_wkv6_kernel()
     wkv_row["launches"], summary["lm"] = phase_lm_serve(args.profile)
@@ -1253,7 +1351,8 @@ def main(argv=None) -> int:
     summary["lm"]["phases_s"] = time.perf_counter() - t_lm
     log(f"[lm] the LM phases (8-10) took {summary['lm']['phases_s']:.1f}s")
     log(f"[main] summary {json.dumps(summary)}")
-    log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    phase_s["lm"] = round(summary["lm"]["phases_s"], 1)
+    log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "bytes", "ops")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},

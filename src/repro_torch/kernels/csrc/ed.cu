@@ -1,30 +1,34 @@
-// Squared-Euclidean-distance scans for Hopper (sm_90a): ed_matrix and the
-// fused bf16 decode + ED decode_bf16_ed_matrix (v2 below), and the fused
-// 1-NN ed_min (v1's tile core, dot_tile).
+// Squared-Euclidean-distance scans for Hopper (sm_90a), on one tile core:
+// ed_matrix, the fused bf16 decode + ED decode_bf16_ed_matrix, and the
+// fused 1-NN ed_min.
 //
 // Replaces: src/repro/kernels/ed.py::ed_matrix (_ed_matrix_kernel),
 // src/repro/kernels/ops.py::decode_bf16_ed_matrix (the bf16 payload bitcast
-// fed to _ed_matrix_kernel) -- both by ed_matrix_v2 -- and
-// src/repro/kernels/ed.py::ed_min (_ed_min_kernel) by ed_min_kernel.
+// fed to _ed_matrix_kernel) -- both by ed_tiles with the StoreDists
+// epilogue -- and src/repro/kernels/ed.py::ed_min (_ed_min_kernel) by
+// ed_tiles with the FoldMin epilogue and by ed_min_resident.
 //
-// Arithmetic, the same in both tile cores: ||q - s||^2 = ||q||^2 + ||s||^2
-// - 2 q.s, where q.s and each squared norm is one fmaf chain over k
+// Arithmetic, the same in every kernel here: ||q - s||^2 = ||q||^2 +
+// ||s||^2 - 2 q.s, where q.s and each squared norm is one fmaf chain over k
 // ascending from 0.0f on the exactly widened values (bf16 -> float32 is
 // bits << 16), in float32 outside the tensor cores (no TF32, no split-K),
-// and out = qn + sn - 2.0f * acc. So v2's outputs equal v1's bit for bit,
-// and a row's minimum and lowest-index argmin over ed_matrix equal ed_min's.
+// and out = (qn + sn) - 2 acc in three float32 operations (dist, never
+// contracted into an FMA). kernels/ref.py::ed_matrix_fma_ref and
+// ed_min_fma_ref repeat this arithmetic through a correctly rounded fmaf
+// built from float64 operations, and hold every output here bit for bit
+// (chip_smoke.py, tests/test_torch_gpu.py). The same arithmetic is why ed_min's minimum and
+// argmin equal the row minimum and first argmin of ed_matrix.
 //
 // Bound on this card (67 TFLOP/s float32 FMA, 3.35 TB/s): 2*Q*N*n
-// operations against (Q*n + N*n + Q*N) * 4 bytes (fewer for bf16 rows), so
-// float32 FMA bound at both of the main path's shapes (n = 256): Q=128 x
-// N=4096 (a scan block, and ooc-local's per-leaf fold padded to 4096 rows)
-// 268,435,456 FLOP, 4.0 us, where launch latency is a large share; Q=128 x
-// N=131,072 (an out-of-core block) 8.59 GFLOP, 0.128 ms.
+// operations against (Q*n + N*n + Q*N) * 4 bytes (fewer for bf16 rows; Q*8
+// out for ed_min), so float32 FMA bound at the main path's shapes (n = 256):
+// Q=128 x N=4096 (a scan block, and ooc-local's per-leaf fold padded to 4096
+// rows) 268,435,456 FLOP, 4.0 us, where launch latency is a large share;
+// Q=128 x N=131,072 (an out-of-core block) 8.59 GFLOP, 0.128 ms; ed_min at
+// Q=128 x N=4,194,304 (the k=1 scan) 275 GFLOP, 4.10 ms.
 //
-// v1 (one 64x64 tile per 256-thread block, 16-wide k-steps, scalar loads)
-// ran at 19-21% of the bound at 4096 rows and 32-33% at 131,072 (device
-// time, tools/kernel_ab.py, H100 80GB HBM3 at 700 W). v2 answers its four
-// limits:
+// The main loop (ed_tiles, k_step) answers four limits of the first tile
+// core (a 64x64 tile of scalar loads, 19-33% of the bound):
 // 1. Grid fill: tiles are chosen by shape. A grid of at least two waves of
 //    128x128 tiles (Big: 8x8 a thread, 256 threads) runs those; smaller
 //    grids run 64x64 tiles (Small: 4x4 a thread), 128 blocks at 128 x 4096.
@@ -44,27 +48,41 @@
 //    queries, then series, and extends its chain from the staged tile in the
 //    same k order beside its tile FMAs, with no branch (the row is picked by
 //    address or by select), so no warp waits on another's norms.
-// At the main path's shapes v2 takes 0.0121 ms (4096 rows; 33% of the
-// bound) and 0.229 (float32) / 0.245 ms (bf16 payload) at 131,072 rows
-// (56% / 52%), measured in one run with the v1 figures above. Launched
-// from a Python loop, as the engine does, a 4096-row call takes 0.02-0.03
-// ms with either core (the host sets the pace), so there v2's gain shows
-// only in device time until those launches are batched into CUDA graphs.
-//
-// ed_min stays on v1's tile core, dot_tile, and is the standing witness of
-// v2's arithmetic: it runs the other tile core on the same formula and fmaf
-// order, so each row's minimum and lowest-index argmin over v2's ed_matrix
-// equal ed_min's (chip_smoke.py and tests/test_torch_gpu.py hold them).
-// Moving it onto v2's core, with its atomicMin fold, is a change of its own.
+// ed_matrix (v2, PR 14) at the main path's shapes: 0.0121 ms (4096 rows; 33% of the
+// bound) and 0.229 (float32) / 0.245 ms (bf16 payload) at 131,072 rows (56%
+// / 52%), device time (tools/kernel_ab.py, H100 80GB HBM3 at 700 W). From a
+// Python loop, as the engine launches it, a 4096-row call takes 0.02-0.03
+// ms: there the host sets the pace.
 //
 // ed_min cannot carry a running (min, argmin) across blocks the way the TPU
-// grid does, because blocks run in parallel in no order. Each block reduces
-// its tile to one (distance, index) per query and folds it into a 64-bit
-// word per query with atomicMin: the high 32 bits are the distance mapped to
-// an order-preserving unsigned key, the low 32 bits the column index. The
-// smallest word is the smallest distance and, among equal distances, the
-// lowest index; the word starts at (+inf, 0), so an all-inf row reports
-// index 0. Columns at or past valid_n are +inf.
+// grid does, because blocks run in parallel in no order. Each block folds
+// its distances to one 64-bit key per query and folds that into the query's
+// word with atomicMin: the high 32 bits are the distance (+ 0.0f, so -0.0
+// ties +0.0) mapped to an order-preserving unsigned key, the low 32 bits the
+// column index. The smallest key is the smallest distance and, among equal
+// distances, the lowest index; the word starts at (+inf, 0), so an all-inf
+// row reports index 0. Columns at or past valid_n are +inf. A thread takes
+// the smallest key of its TN columns per query row, the 8 lanes of a query
+// row fold by __shfl_xor_sync (4, 2, 1), the WARPS_N warp columns through
+// shared memory, and one atomicMin per query row leaves the block. Two
+// states of the kernel, bit for bit the same:
+// A. ed_tiles with FoldMin: ed_matrix's Big or Small grid, the fold as the
+//    epilogue, one block per tile.
+// B. ed_min_resident (Q <= 128 where A would run Big tiles, n up to 320 for
+//    float32 series and 384 for bf16): the whole query block and its norms
+//    are staged once into shared memory (128 x 1,040 B at n = 256), and one
+//    block per SM walks series tiles with a grid stride, streaming only
+//    series rows through a 3-stage ring that runs on across tile
+//    boundaries; each query row's best key stays in registers across tiles
+//    and the block issues one atomicMin per query row at the end. That
+//    halves the bytes staged per tile, runs the query norm chains once, and
+//    leaves no pipeline bubble between tiles. Built with
+//    -DED_MIN_TILES_ONLY (tools/kernel_ab.py --trial), state A runs
+//    everywhere.
+// Device time at Q=128, n=256 (tools/kernel_ab.py, H100 80GB HBM3 at 700
+// W): the first tile core 11.908 ms at 4,194,304 rows and 0.394 ms at
+// 131,072; state A 7.048 and 0.234; state B 6.573 (62% of the bound) and
+// 0.222 (58%).
 //
 // decode_bf16_ed_matrix reads the bf16 codec's rows in place: row r of the
 // encoded block starts at byte r * pitch (pitch = 2n + 4, the payload then
@@ -81,197 +99,8 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int THREADS = 256;
-constexpr int TM = 4;   // query rows per thread: ty + 16*i
-constexpr int TN = 4;   // series columns per thread: tx + 16*j
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Series loaders: element k of series row r, widened to float32.
-template <typename T>
-struct DenseRows {   // (N, n) row-major float32 or bfloat16
-  const T* s;
-  int n;
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    return to_f32(s[(size_t)r * n + k]);
-  }
-};
-
-struct TileSmem {
-  float q[BK][BQ + 1];
-  float s[BK][BN + 1];
-  float qn[BQ];
-  float sn[BN];
-};
-
-// acc[i][j] = q_row . s_row and the two squared norms for this thread's
-// 4x4 sub-tile of the (q0, s0) block tile.
-template <typename Rows>
-__device__ __forceinline__ void dot_tile(const float* __restrict__ q,
-                                         const Rows s, int num_q,
-                                         int num_s, int n, int q0, int s0,
-                                         TileSmem& sm, float (&acc)[TM][TN],
-                                         float (&qn)[TM], float (&sn)[TN]) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-  float nrm = 0.0f;   // threads 0..63: query row tid; 64..127: series row tid-64
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-#pragma unroll
-    for (int l = 0; l < (BQ * BK) / THREADS; ++l) {
-      const int e = tid + l * THREADS;
-      const int r = e / BK;
-      const int kk = e % BK;
-      const int gk = k0 + kk;
-      const int gq = q0 + r;
-      const int gs = s0 + r;
-      sm.q[kk][r] = (gq < num_q && gk < n) ? q[(size_t)gq * n + gk] : 0.0f;
-      sm.s[kk][r] = (gs < num_s && gk < n) ? s(gs, gk) : 0.0f;
-    }
-    __syncthreads();
-    if (tid < BQ) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) nrm = fmaf(sm.q[kk][tid], sm.q[kk][tid], nrm);
-    } else if (tid < BQ + BN) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk)
-        nrm = fmaf(sm.s[kk][tid - BQ], sm.s[kk][tid - BQ], nrm);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = sm.q[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = sm.s[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  if (tid < BQ) {
-    sm.qn[tid] = nrm;
-  } else if (tid < BQ + BN) {
-    sm.sn[tid - BQ] = nrm;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TM; ++i) qn[i] = sm.qn[ty + 16 * i];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) sn[j] = sm.sn[tx + 16 * j];
-}
-
-// float -> unsigned key with the same order (negatives below positives).
-__device__ __forceinline__ uint32_t order_key(float f) {
-  const uint32_t u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_to_float(uint32_t k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
-}
-
-__global__ void ed_min_init(unsigned long long* best, int num_q) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < num_q)
-    best[i] = (unsigned long long)order_key(__int_as_float(0x7F800000)) << 32;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ed_min_kernel(const float* __restrict__ q, const T* __restrict__ s,
-              unsigned long long* __restrict__ best, int num_q, int num_s,
-              int n, int valid_n) {
-  __shared__ TileSmem sm;
-  const int q0 = blockIdx.y * BQ;
-  const int s0 = blockIdx.x * BN;
-  float acc[TM][TN], qn[TM], sn[TN];
-  dot_tile<DenseRows<T>>(q, DenseRows<T>{s, n}, num_q, num_s, n, q0, s0, sm, acc,
-                         qn, sn);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const float inf = __int_as_float(0x7F800000);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    // this thread's best over its 4 columns, in increasing column order with
-    // a strict < so the lowest column wins a tie
-    float bd = inf;
-    int bi = s0 + tx;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gs = s0 + tx + 16 * j;
-      // + 0.0f maps -0.0 to +0.0 so the two zeros tie
-      const float d = (gs < valid_n) ? (qn[i] + sn[j] - 2.0f * acc[i][j]) + 0.0f : inf;
-      if (j == 0 || d < bd) {
-        bd = d;
-        bi = gs;
-      }
-    }
-    // reduce across the 16 lanes that share this query row (same ty)
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xFFFFFFFFu, bd, off);
-      const int oi = __shfl_xor_sync(0xFFFFFFFFu, bi, off);
-      if (od < bd || (od == bd && oi < bi)) {
-        bd = od;
-        bi = oi;
-      }
-    }
-    const int gq = q0 + ty + 16 * i;
-    if (tx == 0 && gq < num_q) {
-      const unsigned long long word =
-          ((unsigned long long)order_key(bd) << 32) | (uint32_t)bi;
-      atomicMin(best + gq, word);
-    }
-  }
-}
-
-__global__ void ed_min_finish(const unsigned long long* __restrict__ best,
-                              float* __restrict__ dmin, int* __restrict__ amin,
-                              int num_q) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < num_q) {
-    const unsigned long long w = best[i];
-    dmin[i] = key_to_float((uint32_t)(w >> 32));
-    amin[i] = (int)(uint32_t)(w & 0xFFFFFFFFull);
-  }
-}
-
-dim3 tile_grid(int num_q, int num_s) {
-  return dim3((unsigned)((num_s + BN - 1) / BN), (unsigned)((num_q + BQ - 1) / BQ));
-}
-
-template <typename T>
-int launch_ed_min(const float* q, const T* s, unsigned long long* scratch,
-                  float* dmin, int* amin, int num_q, int num_s, int n,
-                  int valid_n, void* stream) {
-  if (num_q <= 0) return (int)cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int fb = (num_q + 255) / 256;
-  ed_min_init<<<fb, 256, 0, st>>>(scratch, num_q);
-  if (num_s > 0)
-    ed_min_kernel<T><<<tile_grid(num_q, num_s), THREADS, 0, st>>>(
-        q, s, scratch, num_q, num_s, n, valid_n);
-  ed_min_finish<<<fb, 256, 0, st>>>(scratch, dmin, amin, num_q);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// v2: ed_matrix and decode_bf16_ed_matrix
-// ---------------------------------------------------------------------------
-
-constexpr int kBK = 32;   // k per stage
+constexpr int kBK = 32;              // k per stage
+constexpr int kMaxSmem = 232448;     // dynamic shared memory a block may use (H100)
 
 // A block owns a BM x BN output tile, each thread a TM x TN register tile.
 // A warp's lanes are 4 query rows x 8 series rows, so its tile is WM = 4*TM
@@ -291,9 +120,11 @@ struct TileCfg {
 
 // Chosen on the H100 with tools/kernel_ab.py: Big for grids of at least two
 // waves of its 132 SMs (Q=128 x 131,072: 1024 blocks), Small below (Q=128 x
-// 4096: 128 blocks).
+// 4096: 128 blocks). Resident: state B of ed_min, Big's warp tiling with a
+// 3-stage series ring beside the resident queries.
 using Big = TileCfg<128, 128, 8, 8, 4>;
 using Small = TileCfg<64, 64, 4, 4, 3>;
+using Resident = TileCfg<128, 128, 8, 8, 3>;
 constexpr long long kBigMinTiles = 2 * 132;
 
 // A staged row in shared memory: float32 in an odd number of 16-byte units
@@ -368,21 +199,205 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, int ld,
   }
 }
 
+// One kBK-wide k-step of this thread: its TM x TN tile FMAs over the staged
+// query rows `tq` (row pitch qld bytes) and series rows `ts`, and the next
+// kBK links of its norm chain, over the staged row `nq_row` (a query row,
+// where kQueryNorms and norm_of_q) or `ns_row` (a series row).
+template <class C, typename S, bool kQueryNorms>
+__device__ __forceinline__ void k_step(const unsigned char* __restrict__ tq, int qld,
+                                       const unsigned char* __restrict__ ts, int qr, int sr,
+                                       const unsigned char* nq_row,
+                                       const unsigned char* ns_row, bool norm_of_q,
+                                       float (&acc)[C::TM][C::TN], float& nrm) {
+  constexpr int TM = C::TM, TN = C::TN, SLD = Staged<S>::kLd;
+#pragma unroll
+  for (int k = 0; k < kBK; k += 4) {
+    // the norm row's next 4 k with no branch, so the chain interleaves with
+    // the tile FMAs: float32 rows by a selected address, bf16 series rows
+    // loaded beside the query row and selected value by value
+    float4 v;
+    if constexpr (!kQueryNorms) {
+      v = Staged<S>::load4(ns_row, k);
+    } else if constexpr (std::is_same_v<S, float>) {
+      v = Staged<float>::load4(norm_of_q ? nq_row : ns_row, k);
+    } else {
+      const float4 vq = Staged<float>::load4(nq_row, k);
+      const float4 vs = Staged<S>::load4(ns_row, k);
+      v.x = norm_of_q ? vq.x : vs.x;
+      v.y = norm_of_q ? vq.y : vs.y;
+      v.z = norm_of_q ? vq.z : vs.z;
+      v.w = norm_of_q ? vq.w : vs.w;
+    }
+    nrm = fmaf(v.x, v.x, nrm);
+    nrm = fmaf(v.y, v.y, nrm);
+    nrm = fmaf(v.z, v.z, nrm);
+    nrm = fmaf(v.w, v.w, nrm);
+    float4 a[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = Staged<float>::load4(tq + (qr + 4 * i) * qld, k);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float4 b = Staged<S>::load4(ts + (sr + 8 * j) * SLD, k);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+      }
+    }
+  }
+}
+
 template <class C, typename S>
-constexpr int v2_smem_bytes() {
+constexpr int tile_smem_bytes() {
   return C::STAGES * (C::BM * Staged<float>::kLd + C::BN * Staged<S>::kLd) +
          (C::BM + C::BN) * 4;
 }
 
-// (Q, n) float32 queries x N series rows of n elements of S (float32, or
-// bf16 bits) at a byte pitch -> (Q, N) float32 squared ED; kRowNorms: also
-// the series rows' squared norms as computed here. QVEC and SVEC are the
-// copy widths in bytes for the query and series rows.
-template <class C, typename S, int QVEC, int SVEC, bool kRowNorms>
+// out = (qn + sn) - 2 acc in three float32 operations, never contracted.
+__device__ __forceinline__ float dist(float acc, float qn, float sn) {
+  return __fsub_rn(__fadd_rn(qn, sn), __fmul_rn(2.0f, acc));
+}
+
+// float -> unsigned key with the same order (negatives below positives).
+__device__ __forceinline__ uint32_t order_key(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_to_float(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// The 64-bit fold key of column `col`: order_key(d) << 32 | col, with d =
+// dist + 0.0f (-0.0 -> +0.0), or +inf at or past valid_n.
+__device__ __forceinline__ unsigned long long dist_key(float acc, float qn, float sn,
+                                                       int col, int valid_n) {
+  const float d = col < valid_n ? __fadd_rn(dist(acc, qn, sn), 0.0f)
+                                : __int_as_float(0x7F800000);
+  return ((unsigned long long)order_key(d) << 32) | (uint32_t)col;
+}
+
+__device__ __forceinline__ unsigned long long min_key(unsigned long long a,
+                                                      unsigned long long b) {
+  return b < a ? b : a;
+}
+
+// Fold each thread's smallest key per query row (rows qr + 4*i) across the
+// block: the 8 lanes of a row by shuffles, the WARPS_N warp columns through
+// `red` ([WARPS_N][BM] in shared memory no thread still reads), then one
+// atomicMin per row below q_rows into best[row].
+template <class C>
+__device__ __forceinline__ void fold_block(unsigned long long (&key)[C::TM],
+                                           unsigned long long* red, int qr, int q_rows,
+                                           unsigned long long* __restrict__ best) {
+  const int tid = threadIdx.x, lane = tid % 32, wn = (tid / 32) % C::WARPS_N;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      key[i] = min_key(key[i], __shfl_xor_sync(0xFFFFFFFFu, key[i], off));
+    if (lane % 8 == 0) red[wn * C::BM + qr + 4 * i] = key[i];
+  }
+  __syncthreads();
+  if (tid < q_rows) {
+    unsigned long long w = red[tid];
+#pragma unroll
+    for (int c = 1; c < C::WARPS_N; ++c) w = min_key(w, red[c * C::BM + tid]);
+    atomicMin(best + tid, w);
+  }
+}
+
+// What ed_tiles leaves a block's tile to: this thread's acc (query rows
+// qr + 4*i, series rows sr + 8*j), the tile's norms nq and ns in shared
+// memory, and the ring (no thread reads it any more).
+struct TileOut {
+  int qr, sr, q0, s0, q_rows, s_rows;
+  const float* nq;
+  const float* ns;
+  unsigned char* ring;
+};
+
+// ed_matrix's epilogue: the distances, and with kRowNorms the series rows'
+// squared norms as computed here.
+template <bool kRowNorms>
+struct StoreDists {
+  float* out;
+  float* sn_out;
+  int num_s;
+  template <class C>
+  __device__ __forceinline__ void operator()(const float (&acc)[C::TM][C::TN],
+                                             const TileOut& t) const {
+    if constexpr (kRowNorms) {
+      if (blockIdx.y == 0 && (int)threadIdx.x < t.s_rows)
+        sn_out[t.s0 + threadIdx.x] = t.ns[threadIdx.x];
+    }
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i) {
+      const int r = t.qr + 4 * i;
+      if (r >= t.q_rows) continue;
+      const float qn = t.nq[r];
+      float* const row = out + (long long)(t.q0 + r) * num_s + t.s0;
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        const int c = t.sr + 8 * j;
+        if (c < t.s_rows) row[c] = dist(acc[i][j], qn, t.ns[c]);
+      }
+    }
+  }
+};
+
+// ed_min's state A epilogue: the tile's smallest key per query row, folded
+// into best[].
+struct FoldMin {
+  unsigned long long* best;
+  int valid_n;
+  template <class C>
+  __device__ __forceinline__ void operator()(const float (&acc)[C::TM][C::TN],
+                                             const TileOut& t) const {
+    unsigned long long key[C::TM];
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i) {
+      const float qn = t.nq[t.qr + 4 * i];
+      key[i] = ~0ull;
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        const int c = t.sr + 8 * j;
+        key[i] = min_key(key[i], dist_key(acc[i][j], qn, t.ns[c], t.s0 + c, valid_n));
+      }
+    }
+    fold_block<C>(key, reinterpret_cast<unsigned long long*>(t.ring), t.qr, t.q_rows,
+                  best + t.q0);
+  }
+};
+
+__global__ void ed_min_init(unsigned long long* best, int num_q) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < num_q)
+    best[i] = (unsigned long long)order_key(__int_as_float(0x7F800000)) << 32;
+}
+
+__global__ void ed_min_finish(const unsigned long long* __restrict__ best,
+                              float* __restrict__ dmin, int* __restrict__ amin,
+                              int num_q) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < num_q) {
+    const unsigned long long w = best[i];
+    dmin[i] = key_to_float((uint32_t)(w >> 32));
+    amin[i] = (int)(uint32_t)(w & 0xFFFFFFFFull);
+  }
+}
+
+// One block per (q0, s0) tile: (Q, n) float32 queries x N series rows of n
+// elements of S (float32, or bf16 bits) at a byte pitch, staged through the
+// ring, q.s and both tiles' squared norms; then `epi` (StoreDists for
+// ed_matrix and decode_bf16_ed_matrix, FoldMin for ed_min's state A).
+// QVEC and SVEC are the copy widths in bytes for the query and series rows.
+template <class C, typename S, int QVEC, int SVEC, class Epi>
 __global__ void __launch_bounds__(C::THREADS, 1)
-ed_matrix_v2(const float* __restrict__ q, const unsigned char* __restrict__ s,
-             long long pitch, float* __restrict__ out, float* __restrict__ sn_out,
-             int num_q, int num_s, int n) {
+ed_tiles(const float* __restrict__ q, const unsigned char* __restrict__ s, long long pitch,
+         int num_q, int num_s, int n, Epi epi) {
   constexpr int BM = C::BM, BN = C::BN, TM = C::TM, TN = C::TN;
   constexpr int QLD = Staged<float>::kLd, SLD = Staged<S>::kLd, ES = Staged<S>::kBytes;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -434,84 +449,208 @@ ed_matrix_v2(const float* __restrict__ q, const unsigned char* __restrict__ s,
     const int buf = step % C::STAGES;
     const unsigned char* const tq = sq + buf * BM * QLD;
     const unsigned char* const ts = ss + buf * BN * SLD;
-#pragma unroll
-    for (int k = 0; k < kBK; k += 4) {
-      // the norm row's next 4 k with no branch, so the chain interleaves
-      // with the tile FMAs: float32 rows by a selected address, bf16 series
-      // rows loaded beside the query row and selected value by value
-      float4 v;
-      if constexpr (std::is_same_v<S, float>) {
-        v = Staged<float>::load4(norm_of_q ? tq + nq_row * QLD : ts + ns_row * SLD, k);
-      } else {
-        const float4 vq = Staged<float>::load4(tq + nq_row * QLD, k);
-        const float4 vs = Staged<S>::load4(ts + ns_row * SLD, k);
-        v.x = norm_of_q ? vq.x : vs.x;
-        v.y = norm_of_q ? vq.y : vs.y;
-        v.z = norm_of_q ? vq.z : vs.z;
-        v.w = norm_of_q ? vq.w : vs.w;
-      }
-      nrm = fmaf(v.x, v.x, nrm);
-      nrm = fmaf(v.y, v.y, nrm);
-      nrm = fmaf(v.z, v.z, nrm);
-      nrm = fmaf(v.w, v.w, nrm);
-      float4 a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Staged<float>::load4(tq + (qr + 4 * i) * QLD, k);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float4 b = Staged<S>::load4(ts + (sr + 8 * j) * SLD, k);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
-          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
-          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
-          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
-        }
-      }
-    }
+    k_step<C, S, true>(tq, QLD, ts, qr, sr, tq + nq_row * QLD, ts + ns_row * SLD, norm_of_q,
+                       acc, nrm);
   }
   if (tid < BM)
     nq[tid] = nrm;
   else if (tid < BM + BN)
     ns[tid - BM] = nrm;
-  __syncthreads();
-  if constexpr (kRowNorms) {
-    if (blockIdx.y == 0 && tid < s_rows) sn_out[s0 + tid] = ns[tid];
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = qr + 4 * i;
-    if (r >= q_rows) continue;
-    const float qn = nq[r];
-    float* const row = out + (long long)(q0 + r) * num_s + s0;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = sr + 8 * j;
-      if (c < s_rows) row[c] = qn + ns[c] - 2.0f * acc[i][j];
-    }
-  }
+  __syncthreads();   // the norms are in; no thread reads the ring any more
+  epi.template operator()<C>(acc, TileOut{qr, sr, q0, s0, q_rows, s_rows, nq, ns, smem});
 }
 
-template <class C, typename S, int QVEC, int SVEC, bool kRowNorms>
-int launch_v2(const float* q, const void* s, long long pitch, float* out, float* sn_out,
-              int num_q, int num_s, int n, void* stream) {
-  constexpr int bytes = v2_smem_bytes<C, S>();
-  auto kernel = ed_matrix_v2<C, S, QVEC, SVEC, kRowNorms>;
-  // above 48 KB of shared memory once per device (a bit per device id)
-  static std::atomic<unsigned long long> opted_in{0};
+// Row pitch in bytes of the resident query block: n rounded up to whole
+// k-steps, plus 16 bytes, an odd number of 16-byte units.
+__host__ __device__ constexpr int resident_qld(int n) {
+  return 4 * kBK * ((n + kBK - 1) / kBK) + 16;
+}
+
+template <typename S>
+constexpr int resident_ring_bytes() {
+  using C = Resident;
+  return C::STAGES * C::BN * Staged<S>::kLd + (C::BM + C::BN) * 4 +
+         C::WARPS_N * C::BM * 8;
+}
+
+template <typename S>
+int resident_smem_bytes(int n) {
+  return Resident::BM * resident_qld(n) + resident_ring_bytes<S>();
+}
+
+// State B: num_q <= BM queries staged once with their norms; block b walks
+// series tiles b, b + gridDim.x, ..., their k-steps flattened into one
+// sequence through the ring, so the next tile's first steps load under the
+// current tile's last FMAs and its fold. Each thread keeps its TM query
+// rows' smallest keys across tiles and the block folds them once at the end.
+template <typename S, int QVEC, int SVEC>
+__global__ void __launch_bounds__(Resident::THREADS, 1)
+ed_min_resident(const float* __restrict__ q, const unsigned char* __restrict__ s,
+                long long pitch, unsigned long long* __restrict__ best, int num_q,
+                int num_s, int n, int valid_n) {
+  using C = Resident;
+  constexpr int BM = C::BM, BN = C::BN, TM = C::TM, TN = C::TN;
+  constexpr int SLD = Staged<S>::kLd, ES = Staged<S>::kBytes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qld = resident_qld(n);
+  unsigned char* const sq = smem;                                     // [BM][qld]
+  unsigned char* const ss = smem + BM * qld;                          // [STAGES][BN][SLD]
+  float* const nq = reinterpret_cast<float*>(ss + C::STAGES * BN * SLD);   // [BM]
+  float* const ns = nq + BM;                                               // [BN]
+  unsigned long long* const red = reinterpret_cast<unsigned long long*>(ns + BN);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int qr = (warp / C::WARPS_N) * C::WM + lane / 8;
+  const int sr = (warp % C::WARPS_N) * C::WN + lane % 8;
+  const int steps = (n + kBK - 1) / kBK;
+  const int tiles = (num_s + BN - 1) / BN;
+  const int mine = tiles > (int)blockIdx.x ? (tiles - 1 - (int)blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = mine * steps;
+
+  // the queries, whole rows, in one copy group ahead of the ring's
+  const unsigned char* const qsrc = reinterpret_cast<const unsigned char*>(q);
+  for (int st = 0; st < steps; ++st)
+    stage_rows<BM, 4 * kBK, QVEC, C::THREADS>(sq + 4 * kBK * st, qld, qsrc + 4 * kBK * st,
+                                              4LL * n, num_q, 4 * (n - kBK * st));
+  cp_async_commit();
+
+  // series k-step g of this block: tile blockIdx.x + (g / steps) * gridDim.x,
+  // k-step g % steps; staged in order, so counters replace the division
+  int st_tile = blockIdx.x, st_k = 0;
+  auto stage_next = [&](int g) {
+    const int s0 = st_tile * BN, k0 = st_k * kBK;
+    stage_rows<BN, ES * kBK, SVEC, C::THREADS>(
+        ss + (g % C::STAGES) * BN * SLD, SLD, s + (long long)s0 * pitch + ES * k0, pitch,
+        min(BN, num_s - s0), ES * (n - k0));
+    if (++st_k == steps) {
+      st_k = 0;
+      st_tile += gridDim.x;
+    }
+  };
+#pragma unroll
+  for (int p = 0; p < C::STAGES - 1; ++p) {
+    if (p < total) stage_next(p);
+    cp_async_commit();
+  }
+
+  // the query norms, once: every group but the queries' may still fly
+  cp_async_wait<C::STAGES - 1>();
+  __syncthreads();
+  if (tid < BM) {
+    const unsigned char* const row = sq + tid * qld;
+    float nrm = 0.0f;
+    for (int k = 0; k < steps * kBK; k += 4) {
+      const float4 v = Staged<float>::load4(row, k);
+      nrm = fmaf(v.x, v.x, nrm);
+      nrm = fmaf(v.y, v.y, nrm);
+      nrm = fmaf(v.z, v.z, nrm);
+      nrm = fmaf(v.w, v.w, nrm);
+    }
+    nq[tid] = nrm;
+  }
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  unsigned long long key[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) key[i] = ~0ull;
+  float nrm = 0.0f;   // of series row tid % BN (threads tid >= BN: a copy)
+  const int ns_row = tid % BN;
+  int k_at = 0, s0 = blockIdx.x * BN;
+
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();   // step g landed for every thread; step g - 1's buffer is free
+    if (g + C::STAGES - 1 < total) stage_next(g + C::STAGES - 1);
+    cp_async_commit();
+    const unsigned char* const ts = ss + (g % C::STAGES) * BN * SLD;
+    k_step<C, S, false>(sq + 4 * kBK * k_at, qld, ts, qr, sr, nullptr, ts + ns_row * SLD,
+                        false, acc, nrm);
+    if (++k_at == steps) {   // the tile's last k-step: fold it into the keys
+      if (tid < BN) ns[tid] = nrm;
+      __syncthreads();
+      float sn[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) sn[j] = ns[sr + 8 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float qn = nq[qr + 4 * i];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          key[i] = min_key(key[i], dist_key(acc[i][j], qn, sn[j], s0 + sr + 8 * j, valid_n));
+          acc[i][j] = 0.0f;
+        }
+      }
+      nrm = 0.0f;
+      k_at = 0;
+      s0 += gridDim.x * BN;
+    }
+  }
+  fold_block<C>(key, red, qr, num_q, best);
+}
+
+// Opt `kernel` into `bytes` of dynamic shared memory, once per device (a
+// bit per device id in `done`): setting it at every launch cost time.
+template <typename Kernel>
+cudaError_t smem_opt_in(Kernel kernel, int bytes, std::atomic<unsigned long long>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
-  if (!(opted_in.load() & bit)) {
+  if (!(done.load() & bit)) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    opted_in.fetch_or(bit);
+    if (err != cudaSuccess) return err;
+    done.fetch_or(bit);
   }
-  const dim3 grid((unsigned)((num_s + C::BN - 1) / C::BN),
-                  (unsigned)((num_q + C::BM - 1) / C::BM));
-  kernel<<<grid, C::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      q, static_cast<const unsigned char*>(s), pitch, out, sn_out, num_q, num_s, n);
+  return cudaSuccess;
+}
+
+dim3 tile_grid(int bm, int bn, int num_q, int num_s) {
+  return dim3((unsigned)((num_s + bn - 1) / bn), (unsigned)((num_q + bm - 1) / bm));
+}
+
+template <class C, typename S, int QVEC, int SVEC, class Epi>
+int launch_tiles(const float* q, const void* s, long long pitch, int num_q, int num_s,
+                 int n, Epi epi, cudaStream_t stream) {
+  constexpr int bytes = tile_smem_bytes<C, S>();
+  static_assert(C::WARPS_N * C::BM * 8 <= bytes, "FoldMin's keys fit in the ring");
+  auto kernel = ed_tiles<C, S, QVEC, SVEC, Epi>;
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t err = smem_opt_in(kernel, bytes, done);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<tile_grid(C::BM, C::BN, num_q, num_s), C::THREADS, bytes, stream>>>(
+      q, static_cast<const unsigned char*>(s), pitch, num_q, num_s, n, epi);
+  return (int)cudaGetLastError();
+}
+
+int sm_count() {
+  static std::atomic<int> counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int v = counts[dev & 63].load();
+  if (v == 0 &&
+      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+    counts[dev & 63].store(v);
+  return v;
+}
+
+template <typename S, int QVEC, int SVEC>
+int launch_min_resident(const float* q, const void* s, long long pitch,
+                        unsigned long long* best, int num_q, int num_s, int n, int valid_n,
+                        cudaStream_t stream) {
+  auto kernel = ed_min_resident<S, QVEC, SVEC>;
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t err = smem_opt_in(kernel, kMaxSmem, done);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (num_s + Resident::BN - 1) / Resident::BN;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  kernel<<<min(tiles, sms), Resident::THREADS, resident_smem_bytes<S>(n), stream>>>(
+      q, static_cast<const unsigned char*>(s), pitch, best, num_q, num_s, n, valid_n);
   return (int)cudaGetLastError();
 }
 
@@ -522,40 +661,78 @@ bool big_grid(int num_q, int num_s) {
          kBigMinTiles;
 }
 
-// Float32 series rows (pitch 4n): 16-byte copies where n % 4 == 0 and both
-// bases are 16-byte aligned, else 4-byte copies in Small tiles.
-int launch_v2_f32(const float* q, const float* s, float* out, int num_q, int num_s, int n,
-                  void* stream) {
-  if (num_q <= 0 || num_s <= 0) return (int)cudaSuccess;
-  const long long pitch = 4LL * n;
-  if (n % 4 == 0 && aligned(q, 16) && aligned(s, 16)) {
-    if (big_grid(num_q, num_s))
-      return launch_v2<Big, float, 16, 16, false>(q, s, pitch, out, nullptr, num_q, num_s,
-                                                  n, stream);
-    return launch_v2<Small, float, 16, 16, false>(q, s, pitch, out, nullptr, num_q, num_s,
-                                                  n, stream);
-  }
-  return launch_v2<Small, float, 4, 4, false>(q, s, pitch, out, nullptr, num_q, num_s, n,
-                                              stream);
+// Copy widths in bytes (queries, series rows): the fast ones where n % 4 ==
+// 0, the queries are 16-byte aligned and the series rows kS-byte aligned at
+// their pitch (float32: 16-byte cp.async.cg; bf16 rows at the codec's 2n + 4
+// pitch: 4-byte copies); the slow ones otherwise (odd n, or views only 4-
+// or 2-byte aligned), in Small tiles.
+template <typename S>
+struct Copies;
+template <>
+struct Copies<float> {
+  static constexpr int kQ = 16, kS = 16, kSlowQ = 4, kSlowS = 4;
+};
+template <>
+struct Copies<__nv_bfloat16> {
+  static constexpr int kQ = 16, kS = 4, kSlowQ = 4, kSlowS = 2;
+};
+
+template <typename S>
+bool fast_copies(const float* q, const void* s, long long pitch, int n) {
+  return n % 4 == 0 && aligned(q, 16) && aligned(s, Copies<S>::kS) &&
+         pitch % Copies<S>::kS == 0;
 }
 
-// bf16 series rows at a byte pitch: 4-byte copies where n % 4 == 0, the
-// queries are 16-byte aligned and the rows 4-byte aligned (the bf16
-// codec's 2n + 4 pitch); else (odd n, rows only 2-byte aligned) 2-byte
-// loads in Small tiles.
-template <bool kRowNorms>
-int launch_v2_bf16(const float* q, const void* s, long long pitch, float* out,
-                   float* sn_out, int num_q, int num_s, int n, void* stream) {
+// ed_tiles over the tiles and copy widths the shape and alignment allow:
+// Big tiles for a grid of at least two waves with the fast copies, Small
+// otherwise.
+template <typename S, class Epi>
+int launch_by_shape(const float* q, const void* s, long long pitch, int num_q, int num_s,
+                    int n, Epi epi, cudaStream_t stream) {
+  using K = Copies<S>;
   if (num_q <= 0 || num_s <= 0) return (int)cudaSuccess;
-  if (n % 4 == 0 && aligned(q, 16) && aligned(s, 4) && pitch % 4 == 0) {
-    if (big_grid(num_q, num_s))
-      return launch_v2<Big, __nv_bfloat16, 16, 4, kRowNorms>(q, s, pitch, out, sn_out,
-                                                             num_q, num_s, n, stream);
-    return launch_v2<Small, __nv_bfloat16, 16, 4, kRowNorms>(q, s, pitch, out, sn_out,
-                                                             num_q, num_s, n, stream);
+  if (!fast_copies<S>(q, s, pitch, n))
+    return launch_tiles<Small, S, K::kSlowQ, K::kSlowS>(q, s, pitch, num_q, num_s, n, epi,
+                                                        stream);
+  if (big_grid(num_q, num_s))
+    return launch_tiles<Big, S, K::kQ, K::kS>(q, s, pitch, num_q, num_s, n, epi, stream);
+  return launch_tiles<Small, S, K::kQ, K::kS>(q, s, pitch, num_q, num_s, n, epi, stream);
+}
+
+// State B where A would run Big tiles with the fast copies and the query
+// block fits beside the ring.
+template <typename S>
+bool resident(const float* q, const void* s, long long pitch, int num_q, int num_s, int n) {
+#ifdef ED_MIN_TILES_ONLY
+  return false;
+#else
+  return fast_copies<S>(q, s, pitch, n) && big_grid(num_q, num_s) &&
+         num_q <= Resident::BM && resident_smem_bytes<S>(n) <= kMaxSmem;
+#endif
+}
+
+// init (every word (+inf, 0)), the kernel over the series, finish (words to
+// distances and indices).
+template <typename S>
+int launch_ed_min(const float* q, const void* s, long long pitch, unsigned long long* best,
+                  float* dmin, int* amin, int num_q, int num_s, int n, int valid_n,
+                  void* stream_) {
+  if (num_q <= 0) return (int)cudaSuccess;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int fb = (num_q + 255) / 256;
+  ed_min_init<<<fb, 256, 0, stream>>>(best, num_q);
+  if (num_s > 0) {
+    using K = Copies<S>;
+    const int err =
+        resident<S>(q, s, pitch, num_q, num_s, n)
+            ? launch_min_resident<S, K::kQ, K::kS>(q, s, pitch, best, num_q, num_s, n,
+                                                   valid_n, stream)
+            : launch_by_shape<S>(q, s, pitch, num_q, num_s, n, FoldMin{best, valid_n},
+                                 stream);
+    if (err) return err;
   }
-  return launch_v2<Small, __nv_bfloat16, 4, 2, kRowNorms>(q, s, pitch, out, sn_out, num_q,
-                                                          num_s, n, stream);
+  ed_min_finish<<<fb, 256, 0, stream>>>(best, dmin, amin, num_q);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -563,12 +740,16 @@ int launch_v2_bf16(const float* q, const void* s, long long pitch, float* out,
 // (Q, n) float32 queries x (N, n) series -> (Q, N) float32 squared ED.
 extern "C" int ed_matrix_f32(const float* q, const float* s, float* out, int num_q,
                              int num_s, int n, void* stream) {
-  return launch_v2_f32(q, s, out, num_q, num_s, n, stream);
+  return launch_by_shape<float>(q, s, 4LL * n, num_q, num_s, n,
+                                StoreDists<false>{out, nullptr, num_s},
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ed_matrix_bf16(const float* q, const void* s, float* out, int num_q,
                               int num_s, int n, void* stream) {
-  return launch_v2_bf16<false>(q, s, 2LL * n, out, nullptr, num_q, num_s, n, stream);
+  return launch_by_shape<__nv_bfloat16>(q, s, 2LL * n, num_q, num_s, n,
+                                        StoreDists<false>{out, nullptr, num_s},
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // (Q, n) float32 queries x B bf16 rows of n elements, row r at byte
@@ -578,7 +759,9 @@ extern "C" int ed_matrix_bf16(const float* q, const void* s, float* out, int num
 extern "C" int decode_bf16_ed_matrix(const float* q, const void* payload, long long pitch,
                                      float* out, float* sn_out, int num_q, int num_s,
                                      int n, void* stream) {
-  return launch_v2_bf16<true>(q, payload, pitch, out, sn_out, num_q, num_s, n, stream);
+  return launch_by_shape<__nv_bfloat16>(q, payload, pitch, num_q, num_s, n,
+                                        StoreDists<true>{out, sn_out, num_s},
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // Fused 1-NN: (Q,) float32 min squared ED and (Q,) int32 argmin over the
@@ -586,14 +769,13 @@ extern "C" int decode_bf16_ed_matrix(const float* q, const void* payload, long l
 extern "C" int ed_min_f32(const float* q, const float* s, unsigned long long* scratch,
                           float* dmin, int* amin, int num_q, int num_s, int n,
                           int valid_n, void* stream) {
-  return launch_ed_min<float>(q, s, scratch, dmin, amin, num_q, num_s, n, valid_n,
+  return launch_ed_min<float>(q, s, 4LL * n, scratch, dmin, amin, num_q, num_s, n, valid_n,
                               stream);
 }
 
 extern "C" int ed_min_bf16(const float* q, const void* s, unsigned long long* scratch,
                            float* dmin, int* amin, int num_q, int num_s, int n,
                            int valid_n, void* stream) {
-  return launch_ed_min<__nv_bfloat16>(q, static_cast<const __nv_bfloat16*>(s),
-                                      scratch, dmin, amin, num_q, num_s, n,
+  return launch_ed_min<__nv_bfloat16>(q, s, 2LL * n, scratch, dmin, amin, num_q, num_s, n,
                                       valid_n, stream);
 }

@@ -7,6 +7,14 @@ a CPU tensor runs, and what the card checks each kernel against. Work over the s
 blocks so the ``(Q, rows, n)`` difference tensor stays bounded at the main
 path's shapes; blocking changes no arithmetic (each output element is one
 row's fixed-order sum).
+
+The squared-ED kernels of ``csrc/ed.cu`` round differently from the direct
+form, so they are held to it only within a tolerance. Bit for bit they are
+held to :func:`ed_matrix_fma_ref` and :func:`ed_min_fma_ref`, which repeat
+the kernels' own arithmetic (one ``fmaf`` chain per output, k ascending)
+through :func:`fmaf_ref`, a correctly rounded float32 fused multiply-add
+built from float64 operations. Those run on CPU and CUDA tensors alike and
+give the same bits on both; they are for checking, not for serving.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from repro_torch.core import lower_bounds as LB
 from repro_torch.core import summaries as S
 
 _BLOCK_ELEMS = 1 << 26      # elements of one (Q, rows, n) difference block
+_FMA_BLOCK_ELEMS = 1 << 24  # elements of one (Q, rows) float64 fmaf block
 
 
 def _row_block(q: int, width: int) -> int:
@@ -44,6 +53,94 @@ def ed_min_ref(queries: torch.Tensor, series: torch.Tensor,
         d[:, valid_n:] = float("inf")
     dmin, amin = torch.min(d, dim=1)
     return dmin, amin.to(torch.int32)
+
+
+def fmaf_ref(a, b, c) -> torch.Tensor:
+    """Correctly rounded float32 fused multiply-add ``a * b + c`` over
+    broadcast float32 tensors (or numbers), as CUDA's ``fmaf`` computes it:
+    one rounding, to nearest even, subnormals kept.
+
+    The float64 product of two float32 values is exact (48 significant
+    bits). Its sum with ``c`` is rounded to odd at 53 bits: the float64 sum
+    ``s`` carries the exact error ``e`` of TwoSum, and where ``e != 0`` and
+    ``s`` has an even significand, ``s`` steps one ulp toward ``e``. The
+    cast to float32 then rounds to nearest even, and rounding to odd at 53
+    bits and then to nearest at 24 is correctly rounded (53 >= 24 + 2).
+    Non-finite products or addends take the plain IEEE sum."""
+    dev = next(x.device for x in (a, b, c) if isinstance(x, torch.Tensor))
+    a, b, c = (torch.as_tensor(x, dtype=torch.float32, device=dev).to(torch.float64)
+               for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bv = s - p
+    e = (p - (s - bv)) + (c - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    odd = torch.nextafter(s, torch.copysign(torch.full_like(s, float("inf")), e))
+    s = torch.where((e != 0) & even, odd, s)
+    return torch.where(torch.isfinite(p) & torch.isfinite(c), s, p + c).to(torch.float32)
+
+
+def _fma_sq_norms(rows: torch.Tensor) -> torch.Tensor:
+    """(R, n) -> (R,) squared norms, one fmaf chain per row over k
+    ascending from 0.0f."""
+    cols = rows.to(torch.float32).t()
+    acc = torch.zeros(rows.shape[0], dtype=torch.float32, device=rows.device)
+    for k in range(cols.shape[0]):
+        acc = fmaf_ref(cols[k], cols[k], acc)
+    return acc
+
+
+def _fma_blocks(queries: torch.Tensor, series: torch.Tensor):
+    """Yield (first column, (Q, rows) float32 block) of the kernels'
+    squared ED, blocked over the series rows."""
+    q = queries.to(torch.float32)
+    qn, n = q.shape
+    qt = q.t()
+    q_sq = _fma_sq_norms(q)
+    step = max(1, _FMA_BLOCK_ELEMS // max(1, qn))
+    for lo in range(0, series.shape[0], step):
+        s = series[lo:lo + step].to(torch.float32)
+        st = s.t()
+        acc = torch.zeros((qn, s.shape[0]), dtype=torch.float32, device=q.device)
+        for k in range(n):
+            acc = fmaf_ref(qt[k][:, None], st[k][None, :], acc)
+        yield lo, (q_sq[:, None] + _fma_sq_norms(s)[None, :]) - 2.0 * acc
+
+
+def ed_matrix_fma_ref(queries: torch.Tensor, series: torch.Tensor) -> torch.Tensor:
+    """(Q, n) x (N, n) -> (Q, N) float32 squared ED in the ED kernels'
+    arithmetic (``csrc/ed.cu``), bit for bit: each squared norm and each
+    ``q . s`` is one ``fmaf`` chain over k ascending from 0.0f on the
+    exactly widened values (bf16 -> float32), and ``out = (qn + sn) - 2 acc``
+    in three float32 operations (the kernels never contract them)."""
+    out = torch.empty((queries.shape[0], series.shape[0]), dtype=torch.float32,
+                      device=queries.device)
+    for lo, blk in _fma_blocks(queries, series):
+        out[:, lo:lo + blk.shape[1]] = blk
+    return out
+
+
+def ed_min_fma_ref(queries: torch.Tensor, series: torch.Tensor,
+                   valid_n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused 1-NN in the ED kernels' arithmetic, bit for bit ``ed_min``'s:
+    ``d + 0.0`` (so -0.0 ties +0.0) of :func:`ed_matrix_fma_ref`, +inf at or
+    past ``valid_n``; the minimum, and the first index whose distance equals
+    it (``torch.min``'s index is not promised for ties on CUDA); an all-inf
+    row reports (inf, 0). Returns ((Q,) float32, (Q,) int32)."""
+    qn, num = queries.shape[0], series.shape[0]
+    valid = num if valid_n is None else int(valid_n)
+    dev = queries.device
+    best_d = torch.full((qn,), float("inf"), dtype=torch.float32, device=dev)
+    best_i = torch.zeros((qn,), dtype=torch.int64, device=dev)
+    for lo, blk in _fma_blocks(queries, series):
+        cols = torch.arange(lo, lo + blk.shape[1], device=dev)
+        d = torch.where(cols[None, :] < valid, blk + 0.0, float("inf"))
+        low = d.amin(dim=1)
+        first = torch.where(d == low[:, None], cols[None, :], num).amin(dim=1)
+        take = low < best_d
+        best_d = torch.where(take, low, best_d)
+        best_i = torch.where(take, first, best_i)
+    return best_d, best_i.to(torch.int32)
 
 
 def decode_bf16_ref(payload: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ import torch
 from repro.core.engine import make_backend as jax_make_backend
 from repro.core.search import SearchConfig as JSearchConfig
 from repro_torch.core import engine as E
+from repro_torch.core import summaries as S
 from repro_torch.core.index import HerculesIndex, IndexConfig
 from repro_torch.core.search import SearchConfig
 from repro_torch.core.tree import BuildConfig
@@ -154,6 +155,30 @@ def test_synthetic_generators():
     assert synthetic.make_query_workload(a, 3, "ood").shape == (3, 32)
     with pytest.raises(ValueError):
         synthetic.make_query_workload(a, 3, "50%")
+
+
+def test_synthetic_draw_is_a_function_of_seed_and_shape(monkeypatch):
+    """The walks come from one CPU generator in fixed chunks of rows, each
+    summed and z-normalized on the CPU: the same bits for one (seed, shape)
+    whatever torch's thread count, so the same on every device (the card's
+    draw is held to the CPU's by tests/test_torch_gpu.py and chip_smoke.py)."""
+    monkeypatch.setattr(synthetic, "CHUNK_ROWS", 16)
+    a = synthetic.random_walks(50, 32, seed=3, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    want = torch.cat([S.znormalize(torch.cumsum(torch.randn((rows, 32), generator=g), -1))
+                      for rows in (16, 16, 16, 2)])
+    assert torch.equal(a, want)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        assert torch.equal(synthetic.random_walks(50, 32, seed=3, device="cpu"), a)
+        q = synthetic.make_query_workload(a, 7, "5%", seed=4)
+    finally:
+        torch.set_num_threads(prev)
+    assert torch.equal(synthetic.make_query_workload(a, 7, "5%", seed=4), q)
+    assert not torch.equal(synthetic.random_walks(50, 32, seed=4, device="cpu"), a)
+    raw = synthetic.random_walks(50, 32, seed=3, znorm=False, device="cpu")
+    assert torch.equal(S.znormalize(raw[:16]), a[:16])
 
 
 def test_cli_runs_on_cpu_and_verifies(capsys):

@@ -11,8 +11,10 @@ machine that has only PyTorch:
 (``--noconftest`` because ``tests/conftest.py`` imports JAX.)
 
 Tolerances: float32 ``rtol = atol = 1e-4``, bfloat16 series
-``rtol = 5e-2, atol = 2.5e-1`` (``tests/test_kernel_conformance.py:15-31``);
-argmins exactly equal; ``lb_sax_matrix`` equal in every bit (it rounds and
+``rtol = 5e-2, atol = 2.5e-1`` (``tests/test_kernel_conformance.py:15-31``)
+against the direct-form plain versions; argmins exactly equal; the ED
+kernels equal the exact fma references (``ed_matrix_fma_ref``,
+``ed_min_fma_ref``) in every bit; ``lb_sax_matrix`` equal in every bit (it rounds and
 folds as its plain version does). ``decode_bf16_ed_matrix``: distances
 within ``rtol = atol = 1e-4`` of the plain version, and within
 ``1e-5 * (||q||^2 + ||s^||^2)`` of a float64 evaluation -- the slack the
@@ -125,12 +127,13 @@ _WITNESS_SHAPES = [(128, 4096, 256), (128, 131072, 256), (1, 1, 1), (1, 100, 128
 @pytest.mark.parametrize("kind", ["f32", "bf16", "decode"])
 @pytest.mark.parametrize("q,n,length", _WITNESS_SHAPES)
 def test_ed_matrix_witness_is_ed_min(cuda, q, n, length, kind):
-    """The arithmetic witness: ``ed_min`` runs the other tile core of
-    ``ed.cu`` on the same formula and fmaf order, so each row's minimum of
-    ``ed_matrix`` (float32 or bf16 series) or ``decode_bf16_ed_matrix`` equals
-    ``ed_min``'s distance as a value, and the lowest index attaining it
-    equals ``ed_min``'s index (the decode against ``ed_min`` over the
-    payload's bf16 rows)."""
+    """The witness, now a check of ``ed_min``'s fold: ``ed_min`` runs the
+    tile core of ``ed_matrix`` with a reduction as its epilogue, so each
+    row's minimum of ``ed_matrix`` (float32 or bf16 series) or
+    ``decode_bf16_ed_matrix`` equals ``ed_min``'s distance as a value, and
+    the lowest index attaining it equals ``ed_min``'s index (the decode
+    against ``ed_min`` over the payload's bf16 rows). The core's arithmetic
+    is held by ``test_ed_kernels_equal_the_fma_references``."""
     queries, enc = bf16_block(q * 11 + n + length, q, n, length, cuda)
     rows = tref.decode_bf16_ref(enc[:, :-4]) if kind == "bf16" else None
     if kind == "f32":
@@ -148,6 +151,76 @@ def test_ed_matrix_witness_is_ed_min(cuda, q, n, length, kind):
     first = (mat == low[:, None]).int().argmax(dim=1)
     assert torch.equal(low, dmin)
     assert torch.equal(first, amin.long())
+
+
+def _words(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _hold_fma(queries, series, payload=None, valid_ns=None):
+    """``ed_min`` at each ``valid_n`` and ``ed_matrix`` over ``series`` (and
+    ``decode_bf16_ed_matrix`` over ``payload``, the bf16 bits of
+    ``series``) equal the fma references in every bit."""
+    num = series.shape[0]
+    for valid in valid_ns or (num, num // 2):
+        before = ked.ed_min.launches
+        dmin, amin = ked.ed_min(queries, series, valid_n=valid)
+        assert ked.ed_min.launches == before + 1
+        want_d, want_a = tref.ed_min_fma_ref(queries, series, valid_n=valid)
+        assert torch.equal(_words(dmin), _words(want_d)), valid
+        assert torch.equal(amin, want_a), valid
+    want = _words(tref.ed_matrix_fma_ref(queries, series))
+    assert torch.equal(_words(ked.ed_matrix(queries, series)), want)
+    if payload is not None:
+        assert torch.equal(_words(ked.decode_bf16_ed_matrix(queries, payload)[0]), want)
+
+
+@pytest.mark.parametrize("q,n,length", sorted(set(_TILE_EDGES) | set(_WITNESS_SHAPES)))
+def test_ed_kernels_equal_the_fma_references(cuda, q, n, length):
+    """``ed_min`` (distances as int32 words, and indices; ``valid_n`` N and
+    N // 2), ``ed_matrix`` (float32 and bf16 series) and
+    ``decode_bf16_ed_matrix`` equal ``ed_min_fma_ref`` and
+    ``ed_matrix_fma_ref`` bit for bit, on contiguous tensors and on views
+    whose base is one row in."""
+    qa = randn(q * 13 + n, q + 1, length).to(cuda)
+    sa = randn(q + n * 7 + length, n + 1, length).to(cuda)
+    sb = sa.to(torch.bfloat16)
+    enc = torch.zeros((n + 1, 2 * length + 4), dtype=torch.uint8, device=cuda)
+    enc[:, :2 * length] = sb.view(torch.uint8)
+    payload = enc[:, :-4]
+    for qv, sv, bv, pv in ((qa[:q], sa[:n], sb[:n], payload[:n]),
+                           (qa[1:], sa[1:], sb[1:], payload[1:])):
+        _hold_fma(qv, sv)
+        _hold_fma(qv, bv, pv)
+
+
+# ed_min's resident-query state (Q <= 128 on a grid of Big tiles) at the
+# edges of its fit: Q = 128 and one past it, n = 320 (float32 series) and
+# 384 (bf16), the largest that fit beside the series ring, and one past.
+@pytest.mark.parametrize("q", [128, 129])
+@pytest.mark.parametrize("length", [320, 321, 384, 385])
+def test_ed_min_resident_limits_equal_the_fma_reference(cuda, q, length):
+    n = 40000                     # 313 tiles of 128 rows: two waves and more
+    qa = randn(q + length, q, length).to(cuda)
+    sa = randn(length, n, length).to(cuda)
+    for series in (sa, sa.to(torch.bfloat16)):
+        for valid in (n, n // 2, 5):
+            dmin, amin = ked.ed_min(qa, series, valid_n=valid)
+            want_d, want_a = tref.ed_min_fma_ref(qa, series, valid_n=valid)
+            assert torch.equal(_words(dmin), _words(want_d)), valid
+            assert torch.equal(amin, want_a), valid
+
+
+def test_random_walks_are_the_same_on_the_card(cuda):
+    """One seed draws the same walks and queries on the card as on the CPU,
+    bit for bit, across several chunks and a ragged tail."""
+    from repro_torch.data import synthetic
+    num = 2 * synthetic.CHUNK_ROWS + 77
+    card = synthetic.random_walks(num, 64, seed=9, device=cuda)
+    host = synthetic.random_walks(num, 64, seed=9, device="cpu")
+    assert card.device.type == "cuda" and torch.equal(card.cpu(), host)
+    assert torch.equal(synthetic.make_query_workload(card, 20, "5%", seed=3).cpu(),
+                       synthetic.make_query_workload(host, 20, "5%", seed=3))
 
 
 def test_ed_min_ties_and_all_inf_rows(cuda):

@@ -2,7 +2,8 @@
 """Hold an older build of one of the port's CUDA sources against this
 checkout's on one CUDA card.
 
-    python3 tools/kernel_ab.py --kernel ed|lb_sax --baseline OLD.cu [--out FILE]
+    python3 tools/kernel_ab.py --kernel ed|lb_sax --baseline OLD.cu \
+        [--trial LABEL=FLAGS ...] [--out FILE]
 
 ``--baseline`` is an older ``csrc/<kernel>.cu`` with the same C entry
 points, for example the parent commit's (``git show
@@ -11,7 +12,9 @@ HEAD~1:src/repro_torch/kernels/csrc/lb_sax.cu`` into a gitignored
 directory; the checkout's own build is the package's. Both are launched
 through the package's wrappers (``repro_torch.kernels.ed`` or
 ``.lb_sax``), the baseline by standing in for the package's loaded
-library of that name.
+library of that name. Each ``--trial LABEL=FLAGS`` (for example
+``A=-DED_MIN_TILES_ONLY``) also builds the checkout's source with the extra
+``nvcc`` flags, a trial state that joins every bits check and timing.
 
 ``--kernel ed`` (the squared-ED kernels):
 
@@ -21,17 +24,20 @@ library of that name.
    baseline's bit for bit: at the main path's shapes (Q=128 x 4096 and
    131,072 rows, n=256), at ``chip_smoke.py``'s adversarial shapes, at
    every Q in {1, 127, 129} x N in {1, 31, 4096, 4097, 131,073} x n in
-   {1, 7, 255, 256}, and on views whose base is one row in.
+   {1, 7, 255, 256}, and on views whose base is one row in. ``ed_min``
+   (distances as int32 words, and indices; float32 and bf16 series, at
+   ``valid_n`` N and N // 2) at its main shapes (Q=128 x 4,194,304 and
+   131,072 rows, n=256) and the same edge grid, also one row in.
 2. Witness: ``chip_smoke.hold_witness`` (row minima and first argmins
    against ``ed_min``) on the checkout's build at the main shapes.
-3. Times at the main shapes, baseline and checkout in turns (baseline,
-   checkout, checkout, baseline): ``chip_smoke.time_ms`` (launched from a
-   host loop, as the engine does: the ``ms`` of ``chip_smoke.py``'s kernels
-   line) and ``chip_smoke.device_ms`` (a CUDA graph of back-to-back
-   launches: its ``device_ms``). At 4096 rows twice: "hot" relaunches on one
-   block, "stream" walks consecutive blocks of a 131,072-row collection, as
-   the k>1 scan and ``ooc-local``'s folds meet them. First a 1x1x1 launch,
-   the floor.
+3. Times at the main shapes, the builds in turns (baseline, checkout,
+   trials, then back): ``chip_smoke.time_ms`` (launched from a host loop,
+   as the engine does: the ``ms`` of ``chip_smoke.py``'s kernels line) and
+   ``chip_smoke.device_ms`` (a CUDA graph of back-to-back launches: its
+   ``device_ms``). At 4096 rows twice: "hot" relaunches on one block,
+   "stream" walks consecutive blocks of a 131,072-row collection, as the
+   k>1 scan and ``ooc-local``'s folds meet them. First a 1x1x1 launch, the
+   floor. ``ed_min`` at Q=128 x 4,194,304 and 131,072 rows.
 
 ``--kernel lb_sax`` (``lb_sax_matrix``):
 
@@ -73,13 +79,14 @@ ED_EDGES = [(1, 1, 1), (1, 100, 128), (5, 77, 48), (8, 129, 33), (130, 4097, 256
          (127, 31, 7), (1, 4097, 256), (129, 131073, 255)]
 
 
-def load_baseline(name: str, src: Path, workdir: Path) -> ctypes.CDLL:
-    """Compile ``src`` with the package's flags and declare it as library
-    ``name``."""
+def load_baseline(name: str, src: Path, workdir: Path, label: str = "baseline",
+                  flags: tuple = ()) -> ctypes.CDLL:
+    """Compile ``src`` with the package's flags (and ``flags``) and declare
+    it as library ``name``."""
     from repro_torch.kernels import _build
-    lib = workdir / f"lib{name}_baseline.so"
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                          capture_output=True, text=True)
+    lib = workdir / f"lib{name}_{label}.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+                           str(src)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
     loaded = ctypes.CDLL(str(lib))
@@ -111,34 +118,64 @@ def ed_outputs(q, s, sb, payload) -> list:
     return [ked.ed_matrix(q, s), ked.ed_matrix(q, sb), *ked.decode_bf16_ed_matrix(q, payload)]
 
 
-def check_ed_bits(baseline) -> list:
-    """Every output of the checkout's build against the baseline's; returns
-    the differing cases (empty when all are bit-identical)."""
+ED_EDGE_GRID = list(itertools.product((1, 127, 129), (1, 31, 4096, 4097, 131073),
+                                     (1, 7, 255, 256)))
+MIN_MAIN = [(128, 4194304, 256), (128, 131072, 256)]
+
+
+def ed_min_outputs(q, s, sb) -> list:
+    """``ed_min`` over float32 and bf16 series at valid_n N and N // 2:
+    distances as int32 words, then indices."""
+    import torch
+    from repro_torch.kernels import ed as ked
+    out = []
+    for series in (s, sb):
+        for valid in (s.shape[0], s.shape[0] // 2):
+            dmin, amin = ked.ed_min(q, series, valid_n=valid)
+            out += [dmin.view(torch.int32), amin]
+    return out
+
+
+def check_ed_bits(builds: dict) -> list:
+    """Every output of the checkout's build and of each trial against the
+    baseline's; returns the differing cases (empty when all are
+    bit-identical)."""
     import torch
     names = ("ed_matrix f32", "ed_matrix bf16", "decode dists", "decode norms")
-    shapes = ED_MAIN + ED_EDGES + list(itertools.product(
-        (1, 127, 129), (1, 31, 4096, 4097, 131073), (1, 7, 255, 256)))
-    bad, cases = [], 0
-    for idx, (qn, num, n) in enumerate(shapes):
+    min_names = [f"ed_min {dt} valid {v} {what}" for dt in ("f32", "bf16")
+                 for v in ("N", "N//2") for what in ("dists", "indices")]
+    cases = [(shape, True) for shape in ED_MAIN + ED_EDGES + ED_EDGE_GRID]
+    cases += [(shape, False) for shape in MIN_MAIN + ED_EDGE_GRID]
+    bad, count = [], 0
+    for idx, ((qn, num, n), matrix) in enumerate(cases):
         q, s = walks(qn + 1, n, 2 * idx), walks(num + 1, n, 2 * idx + 1)
-        sb, payload = s.to(torch.bfloat16), cs.bf16_payload(s)
-        views = {"": (q[:qn], s[:num], sb[:num], payload[:num]),
-                 " +1 row": (q[1:], s[1:], sb[1:], payload[1:])}
+        sb = s.to(torch.bfloat16)
+        if matrix:
+            payload = cs.bf16_payload(s)
+            views = {"": (q[:qn], s[:num], sb[:num], payload[:num]),
+                     " +1 row": (q[1:], s[1:], sb[1:], payload[1:])}
+            fn, labels = ed_outputs, names
+        else:
+            views = {"": (q[:qn], s[:num], sb[:num]), " +1 row": (q[1:], s[1:], sb[1:])}
+            fn, labels = ed_min_outputs, min_names
         for tag, view in views.items():
-            with using("ed", baseline):
-                want = ed_outputs(*view)
-            with using("ed", None):
-                got = ed_outputs(*view)
-            for name, a, b in zip(names, got, want):
-                cases += 1
-                if not torch.equal(a, b):
-                    bad.append(f"{name} {qn}x{num}x{n}{tag}")
-    print(f"[bits] {cases} comparisons over {len(shapes)} shapes: {len(bad)} differ "
+            outs = {}
+            for label, lib in builds.items():
+                with using("ed", lib):
+                    outs[label] = fn(*view)
+            want = outs.pop("v1")
+            for label, got in outs.items():
+                for name, a, b in zip(labels, got, want):
+                    count += 1
+                    if not torch.equal(a, b):
+                        bad.append(f"{label}: {name} {qn}x{num}x{n}{tag}")
+        del q, s, sb
+    print(f"[bits] {count} comparisons over {len(cases)} shapes: {len(bad)} differ "
           f"{bad[:10] if bad else ''}", flush=True)
     return bad
 
 
-def ed_timings(baseline) -> list:
+def ed_timings(builds: dict) -> list:
     from repro_torch.kernels import ed as ked
     q, coll = walks(128, 256, 50), walks(131072, 256, 51)
     payload, one = cs.bf16_payload(coll), walks(2, 1, 53)
@@ -165,19 +202,25 @@ def ed_timings(baseline) -> list:
         f32 = kname == "ed_matrix"
         nbytes = qn * n * 4 + num * n * (4 if f32 else 2) + qn * num * 4 + (0 if f32 else num * 4)
         bound = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S, 2 * qn * num * n / cs.FP32_FLOPS)
-        rows.append(in_turns("ed", baseline, kname, shape, mode, fn, reps, bound))
+        rows.append(in_turns("ed", builds, kname, shape, mode, fn, reps, bound))
+    big = walks(MIN_MAIN[0][1], 256, 52)
+    for (qn, num, n), series, reps in ((MIN_MAIN[1], coll, 40), (MIN_MAIN[0], big, 5)):
+        nbytes = (qn * n + num * n) * 4 + qn * 8
+        bound = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S, 2 * qn * num * n / cs.FP32_FLOPS)
+        rows.append(in_turns("ed", builds, "ed_min", (qn, num, n), "hot",
+                             lambda: ked.ed_min(q, series), reps, bound))
     return rows
 
 
-def in_turns(lib: str, baseline, kname: str, shape, mode: str, fn, reps: int,
+def in_turns(lib: str, builds: dict, kname: str, shape, mode: str, fn, reps: int,
              bound: float) -> dict:
-    """``fn`` timed on the baseline (v1) and the checkout (v2) in turns
-    (v1, v2, v2, v1), by the host loop and by a CUDA graph; prints and
-    returns the row."""
-    runs: dict = {"v1": [], "v2": []}
-    for name in ("v1", "v2", "v2", "v1"):
-        with using(lib, baseline if name == "v1" else None):
-            runs[name].append((cs.time_ms(fn, reps, warmup=2), cs.device_ms(fn, reps)))
+    """``fn`` timed on each build (the baseline v1, the checkout v2, the
+    trials) in turns, forward and back (v1, v2, trials, trials, v2, v1), by
+    the host loop and by a CUDA graph; prints and returns the row."""
+    runs: dict = {label: [] for label in builds}
+    for label in [*builds, *reversed(builds)]:
+        with using(lib, builds[label]):
+            runs[label].append((cs.time_ms(fn, reps, warmup=2), cs.device_ms(fn, reps)))
     row = {"kernel": kname, "shape": list(shape), "mode": mode, "reps": reps,
            "bound_ms": bound, "runs": runs,
            "ms": {k: sum(e for e, _ in v) / 2 for k, v in runs.items()},
@@ -215,9 +258,10 @@ def lb_edge_inputs(qn: int, num: int, m: int, alphabet: int, seed: int):
     return q_paa, codes
 
 
-def check_lb_bits(baseline) -> list:
-    """The checkout's ``lb_sax_matrix`` against the baseline's and the plain
-    version's, as int32 words; returns the differing cases."""
+def check_lb_bits(builds: dict) -> list:
+    """The checkout's ``lb_sax_matrix`` (and each trial's) against the
+    baseline's and the plain version's, as int32 words; returns the
+    differing cases."""
     import torch
     from repro_torch.kernels import lb_sax as klb, ref
 
@@ -235,28 +279,31 @@ def check_lb_bits(baseline) -> list:
         views = {"": (q_paa[:qn], codes[:num]), " +1 row": (q_paa[1:], codes[1:]),
                  " +-1e15": (big, codes[:num])}
         for tag, (q, c) in views.items():
-            with using("lb_sax", baseline):
-                want = klb.lb_sax_matrix(q, c, length, alphabet)
-            with using("lb_sax", None):
-                got = klb.lb_sax_matrix(q, c, length, alphabet)
+            outs = {}
+            for label, lib in builds.items():
+                with using("lb_sax", lib):
+                    outs[label] = klb.lb_sax_matrix(q, c, length, alphabet)
+            want = outs.pop("v1")
             plain = ref.lb_sax_matrix_ref(q, c, length, alphabet)
-            for what, other in (("baseline", want), ("plain", plain)):
-                cases += 1
-                if not torch.equal(bits(got), bits(other)):
-                    bad.append(f"lb_sax vs {what} {qn}x{num}x{m} a={alphabet}{tag}")
+            for label, got in outs.items():
+                for what, other in (("baseline", want), ("plain", plain)):
+                    cases += 1
+                    if not torch.equal(bits(got), bits(other)):
+                        bad.append(f"{label}: lb_sax vs {what} {qn}x{num}x{m} "
+                                   f"a={alphabet}{tag}")
     print(f"[bits] {cases} comparisons over {len(inputs)} shapes: {len(bad)} differ "
           f"{bad[:10] if bad else ''}", flush=True)
     return bad
 
 
-def lb_timings(baseline) -> list:
+def lb_timings(builds: dict) -> list:
     from repro_torch.kernels import lb_sax as klb
     rows = []
     for i, (qn, num, m) in enumerate(LB_MAIN):
         q_paa, codes = (x[:-1] for x in lb_main_inputs(qn, num, m, 80 + 2 * i))
         nbytes = qn * m * 4 + num * m + qn * num * 4
         bound = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S, qn * num * (6 * m + 1) / cs.FP32_FLOPS)
-        rows.append(in_turns("lb_sax", baseline, "lb_sax_matrix", (qn, num, m), "hot",
+        rows.append(in_turns("lb_sax", builds, "lb_sax_matrix", (qn, num, m), "hot",
                              lambda: klb.lb_sax_matrix(q_paa, codes, 256), 200, bound))
         del q_paa, codes
     return rows
@@ -268,6 +315,9 @@ def main(argv=None) -> int:
                     help="which source under src/repro_torch/kernels/csrc to compare")
     ap.add_argument("--baseline", required=True,
                     help="an older <kernel>.cu with the same C entry points")
+    ap.add_argument("--trial", action="append", default=[], metavar="LABEL=FLAGS",
+                    help="also build the checkout's source with these extra nvcc flags "
+                         "(space-separated) as trial state LABEL")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
 
@@ -278,19 +328,25 @@ def main(argv=None) -> int:
     smi = cs.smi_line()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
     with tempfile.TemporaryDirectory(prefix="kernel-ab-") as tmp:
-        baseline = load_baseline(args.kernel, Path(args.baseline).resolve(), Path(tmp))
+        from repro_torch.kernels import _build
+        builds = {"v1": load_baseline(args.kernel, Path(args.baseline).resolve(), Path(tmp)),
+                  "v2": None}
+        for trial in args.trial:
+            label, _, flags = trial.partition("=")
+            builds[label] = load_baseline(args.kernel, _build.CSRC / f"{args.kernel}.cu",
+                                          Path(tmp), label, tuple(flags.split()))
         if args.kernel == "lb_sax":
-            bad = check_lb_bits(baseline)
-            rows = lb_timings(baseline)
+            bad = check_lb_bits(builds)
+            rows = lb_timings(builds)
         else:
-            bad = check_ed_bits(baseline)
+            bad = check_ed_bits(builds)
             with using("ed", None):
                 for qn, num, n in ED_MAIN:
                     s = walks(num, n, 91)
                     cs.hold_witness(walks(qn, n, 90), s, cs.bf16_payload(s), f"{qn}x{num}x{n}")
             print("[witness] row minima and first argmins equal ed_min's at the main shapes",
                   flush=True)
-            rows = ed_timings(baseline)
+            rows = ed_timings(builds)
     line = json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                        "kernel": args.kernel, "bits_differ": bad, "timings": rows})
     print(line)
