@@ -43,10 +43,11 @@ Phases (any failure ends the run with a non-zero exit):
    of ``ed_min``'s shapes and at 131,072 rows, and the ED witness;
 7. the card's answers against the CPU's on a small input (the CPU path is
    the one the test suite holds against the JAX reference);
-8. ``wkv6`` against its plain version: the LM path's prefill shape
-   (B=4, T=512, H=64, K=V=64) with a nonzero state, the decode shape (T=1),
-   bf16 r/k/v as served and float32, the extreme decays and the
-   overflow-then-reset case; CUDA-event times;
+8. ``wkv6`` against its plain version and, bit for bit, against the exact
+   fma reference ``wkv6_fma_ref``: the LM path's prefill shape (B=4,
+   T=512, H=64, K=V=64) with a nonzero state, the decode shape (T=1), bf16
+   r/k/v as served and float32, the extreme decays and the
+   overflow-then-reset case; host-loop and CUDA-graph times at both shapes;
 9. LM serving at full width: ``rwkv6-7b`` (all 32 layers, d_model 4096,
    bf16 compute, float32 parameters) with random weights from a seed, 8
    requests of 512-token prompts through ``ServeEngine`` in two waves of 4,
@@ -58,9 +59,9 @@ Phases (any failure ends the run with a non-zero exit):
 10. the card against the CPU at full width and 2 layers in float32: a
    64-token prefill and 4 decode steps, logits within 1e-4, equal tokens.
 
-The line before the last two is ``{"kernels": [...]}`` (``device_ms`` is
-null where only the host loop timed a kernel: ``wkv6``); then the card's
-``nvidia-smi`` name and power limit; the last line is
+The line before the last two is ``{"kernels": [...]}`` (every row with
+``device_ms``, a CUDA graph's time); then the card's ``nvidia-smi`` name
+and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1000,31 +1001,59 @@ def _wkv_cost(b, t, h, dk, dv, esize):
     return nbytes, steps * (5 * dk * dv + 3 * dk + 2 * dv)
 
 
+def wkv_words(x):
+    """int32 words of a float32 or bf16 tensor (bf16 bits zero-extended),
+    every NaN as one word -1: the card's fmaf and the reference's float64
+    operations give NaNs other payloads."""
+    import torch
+    x = x.contiguous()
+    words = x.view(torch.int32) if x.dtype == torch.float32 else \
+        x.view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.where(torch.isnan(x.float()), torch.full_like(words, -1), words)
+
+
+def hold_wkv6_bits(args, got, what: str) -> None:
+    """``got``, the ``wkv6`` kernel's (out, final state) on ``args``, equals
+    ``kernels/ref.py::wkv6_fma_ref`` (the kernel's fmaf chains through a
+    correctly rounded fmaf) in every bit, NaNs as one word."""
+    from repro_torch.kernels import ref
+    for name, a, b in zip(("out", "state"), got, ref.wkv6_fma_ref(*args)):
+        bad = int((wkv_words(a) != wkv_words(b)).sum())
+        check(bad == 0, f"wkv6 {what}: {bad} {name} words differ from wkv6_fma_ref")
+
+
 def phase_wkv6_kernel():
-    """``wkv6`` against its plain version on the card at the LM path's
-    prefill and decode shapes, with bf16 r, k, v as served and in float32
-    (phase 10's path), and on the extreme decays; times at both shapes, as
-    served. Returns the kernel's row for the ``{"kernels": ...}`` line (its
-    launches are filled in by the serving phase)."""
+    """``wkv6`` against its plain version (within the tolerances) and
+    against the exact fma reference (bit for bit) on the card at the LM
+    path's prefill and decode shapes, with bf16 r, k, v as served and in
+    float32 (phase 10's path), and on the extreme decays and the
+    overflow-then-reset case; times at both shapes by the host loop and by a
+    CUDA graph. Returns the kernel's row for the ``{"kernels": ...}`` line
+    (its launches are filled in by the serving phase), with ``by_shape``:
+    ``ms``, ``device_ms`` and bound of each timed shape."""
     import torch
     from repro_torch.kernels import ref, wkv6 as kwkv
 
     g = torch.Generator(device="cuda").manual_seed(13)
-    shape = (4, LM_PROMPT, 64, 64, 64)
-    full, dec, err = {}, {}, {}
+    shapes = {"prefill": (4, LM_PROMPT, 64, 64, 64), "decode": (4, 1, 64, 64, 64)}
+    args, err = {}, {}
     for dtype in ("float32", "bfloat16"):
-        full[dtype] = a = _wkv_inputs(g, *shape, getattr(torch, dtype))
-        out, sf = kwkv.wkv6(*a)
-        want_o, want_s = ref.wkv6_ref(*a)
-        check(out.dtype == a[0].dtype, f"wkv6 {dtype}: out is {out.dtype}")
-        err[dtype] = max(
-            assert_close(out, want_o, dtype, f"wkv6 prefill shape {dtype} out"),
-            assert_close(sf, want_s, "float32", f"wkv6 prefill shape {dtype} state"))
-        dec[dtype] = d = _wkv_inputs(g, 4, 1, 64, 64, 64, getattr(torch, dtype))
-        got = kwkv.wkv6(*d)
-        want = ref.wkv6_ref(*d)
-        assert_close(got[0], want[0], dtype, f"wkv6 decode shape {dtype} out")
-        assert_close(got[1], want[1], "float32", f"wkv6 decode shape {dtype} state")
+        for kind, shape in shapes.items():
+            args[kind, dtype] = a = _wkv_inputs(g, *shape, getattr(torch, dtype))
+            got = kwkv.wkv6(*a)
+            want_o, want_s = ref.wkv6_ref(*a)
+            check(got[0].dtype == a[0].dtype, f"wkv6 {dtype}: out is {got[0].dtype}")
+            err[kind, dtype] = max(
+                assert_close(got[0], want_o, dtype, f"wkv6 {kind} shape {dtype} out"),
+                assert_close(got[1], want_s, "float32", f"wkv6 {kind} shape {dtype} state"))
+            hold_wkv6_bits(a, got, f"{kind} shape {dtype}")
+    # w == 0 at some rows of steps 40-42 only: that chunk runs the select,
+    # the others the reset-free loop
+    a = list(args["prefill", "bfloat16"])
+    a[3] = a[3].clone()
+    a[3][:, 40:43] = torch.where(torch.rand(a[3][:, 40:43].shape, generator=g, device="cuda")
+                                 < 0.3, 0.0, a[3][:, 40:43])
+    hold_wkv6_bits(a, kwkv.wkv6(*a), "prefill shape bf16, w == 0 in one chunk")
     # the extreme decays of tests/test_kernels.py:148-190 at a small shape
     b, t, h, dk, dv = 1, 64, 1, 4, 4
     rx, kx, vx, _, ux, sx = _wkv_inputs(g, b, t, h, dk, dv)
@@ -1033,45 +1062,57 @@ def phase_wkv6_kernel():
     sweeps = [torch.full((b, t, h, dk), wv, device="cuda")
               for wv in (0.0, 1e-38, 1.0 - 1e-6, 1.0)] + [torch.stack(cols, -1).cuda()]
     for wx in sweeps:
-        o, s = kwkv.wkv6(rx, kx, vx, wx, ux, sx)
+        a = (rx, kx, vx, wx, ux, sx)
+        o, s = got = kwkv.wkv6(*a)
         check(bool(torch.isfinite(o).all()), "wkv6 extreme decay: non-finite output")
-        wo, ws = ref.wkv6_ref(rx, kx, vx, wx, ux, sx)
+        wo, ws = ref.wkv6_ref(*a)
         assert_close(o, wo, "float32", "wkv6 extreme decay out")
         assert_close(s, ws, "float32", "wkv6 extreme decay state")
+        hold_wkv6_bits(a, got, f"extreme decay w[0] = {float(wx.flatten()[0]):.3g}")
     kx, vx = kx[:, :24].clone(), vx[:, :24].clone()
     kx[:, :8] = 2e19
     vx[:, :8] = 2e19
     wx = torch.ones(b, 24, h, dk, device="cuda")
     wx[:, 8] = 0.0
-    zero = torch.zeros_like(sx)
-    o, s = kwkv.wkv6(rx[:, :24], kx, vx, wx, ux, zero)
-    wo, ws = ref.wkv6_ref(rx[:, :24], kx, vx, wx, ux, zero)
+    a = (rx[:, :24], kx, vx, wx, ux, torch.zeros_like(sx))
+    o, s = got = kwkv.wkv6(*a)
+    wo, ws = ref.wkv6_ref(*a)
     check(bool(torch.isfinite(o[:, 9:]).all()), "wkv6 overflow-reset: non-finite after reset")
     assert_close(o[:, 9:], wo[:, 9:], "float32", "wkv6 overflow-reset out")
     assert_close(s, ws, "float32", "wkv6 overflow-reset state")
+    hold_wkv6_bits(a, got, "overflow-then-reset (every step)")
     torch.cuda.synchronize()
-    # the row: bf16 r, k, v and out, as served
-    f32_ms = time_ms(lambda: kwkv.wkv6(*full["float32"]), reps=20, warmup=2)
-    dec_ms = time_ms(lambda: kwkv.wkv6(*dec["bfloat16"]), reps=200, warmup=5)
+    by_shape = {}
+    for (kind, dtype), a in args.items():
+        nbytes, ops = _wkv_cost(*shapes[kind], 2 if dtype == "bfloat16" else 4)
+        reps = 20 if kind == "prefill" else 200
+
+        def run(a=a):
+            return kwkv.wkv6(*a)
+
+        by_shape[f"{kind} {dtype}"] = dict(
+            shape=list(shapes[kind]), ms=time_ms(run, reps=reps, warmup=2),
+            device_ms=device_ms(run, reps=reps),
+            bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS))
+    served = by_shape["prefill bfloat16"]
     row = dict(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
-        replaces="src/repro/kernels/wkv6.py:98", shape=list(shape), launches=None,
-        max_abs_err=err["bfloat16"],
-        ms=time_ms(lambda: kwkv.wkv6(*full["bfloat16"]), reps=20, warmup=2),
-        plain_ms=time_ms(lambda: ref.wkv6_ref(*full["bfloat16"]), reps=2),
-        library_ms=None)
-    row["bytes"], row["ops"] = _wkv_cost(*shape, 2)
+        replaces="src/repro/kernels/wkv6.py:98", shape=served["shape"], launches=None,
+        max_abs_err=err["prefill", "bfloat16"], ms=served["ms"],
+        device_ms=served["device_ms"],
+        plain_ms=time_ms(lambda: ref.wkv6_ref(*args["prefill", "bfloat16"]), reps=2),
+        library_ms=None, by_shape=by_shape)
+    row["bytes"], row["ops"] = _wkv_cost(*served["shape"], 2)
     _bound(row)
-    f32_bound, dec_bound = (1e3 * max(nb / HBM_BYTES_PER_S, ops / FP32_FLOPS)
-                            for nb, ops in (_wkv_cost(*shape, 4), _wkv_cost(4, 1, 64, 64, 64, 2)))
-    log(f"[wkv6] agrees with its plain version at the prefill shape {shape} (max abs err "
-        f"bf16 r/k/v {err['bfloat16']:.3e}, float32 {err['float32']:.3e}), the decode "
-        f"shape (4, 1, 64, 64, 64), the extreme decays and the overflow-then-reset case")
-    log(f"[timing] wkv6 {row['shape']}, bf16 r/k/v/out as served: kernel {row['ms']:.4f} ms, "
-        f"plain {row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}: {row['bytes']} B, {row['ops']} ops); float32 r/k/v/out: "
-        f"kernel {f32_ms:.4f} ms, bound {f32_bound:.4f} ms; decode shape (4, 1, 64, 64, "
-        f"64), bf16: kernel {dec_ms:.4f} ms, bound {dec_bound:.5f} ms")
+    log(f"[wkv6] agrees with its plain version at the prefill shape {shapes['prefill']} "
+        f"(max abs err bf16 r/k/v {err['prefill', 'bfloat16']:.3e}, float32 "
+        f"{err['prefill', 'float32']:.3e}), the decode shape {shapes['decode']}, the "
+        f"extreme decays and the overflow-then-reset case, and equals wkv6_fma_ref in "
+        f"every bit at all of them")
+    log(f"[timing] wkv6, plain {row['plain_ms']:.4f} ms (prefill, bf16), library none; "
+        f"kernel host loop / device (bound): " + "; ".join(
+            f"{name} {r['ms']:.4f} / {r['device_ms']:.4f} ({r['bound_ms']:.5f}, "
+            f"{r['bound_ms'] / r['device_ms']:.1%})" for name, r in by_shape.items()))
     return row
 
 
@@ -1215,7 +1256,8 @@ def phase_lm_serve(profile: bool = False):
     summary = {"run_s": run_s, "tok_per_s": tokens / run_s, "prefill_ms": prefill_ms,
                "decode_ms_median": dec_sorted[len(dec_sorted) // 2], "peak_gib": peak,
                "first_token_logit_gap_f32": gap32,
-               "wkv6_launches": launches}
+               "wkv6_launches": launches,
+               "wkv6_prefill_launches": cfg.num_layers * (LM_REQUESTS // LM_SLOTS)}
     return launches, summary
 
 
@@ -1346,6 +1388,16 @@ def main(argv=None) -> int:
     wkv_row = phase_wkv6_kernel()
     wkv_row["launches"], summary["lm"] = phase_lm_serve(args.profile)
     rows.append(wkv_row)
+    # launches x (device time - bound) of the served run, by shape
+    by_shape = summary["wkv6_shapes"] = wkv_row.pop("by_shape")
+    pre = summary["lm"]["wkv6_prefill_launches"]
+    loss = {kind: n * (by_shape[f"{kind} bfloat16"]["device_ms"]
+                       - by_shape[f"{kind} bfloat16"]["bound_ms"])
+            for kind, n in (("prefill", pre), ("decode", wkv_row["launches"] - pre))}
+    summary["wkv6_loss_ms"] = loss
+    log(f"[lm] wkv6 launches x (device ms - bound) in the served run: prefill {pre} x, "
+        f"{loss['prefill']:.4f} ms; decode {wkv_row['launches'] - pre} x, "
+        f"{loss['decode']:.4f} ms")
     torch.cuda.empty_cache()
     phase_lm_cpu_agreement()
     summary["lm"]["phases_s"] = time.perf_counter() - t_lm
@@ -1354,9 +1406,9 @@ def main(argv=None) -> int:
     phase_s["lm"] = round(summary["lm"]["phases_s"], 1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "bytes", "ops")
-    print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                   "device_ms": r.get("device_ms")} for r in rows]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "bytes", "ops",
+            "device_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

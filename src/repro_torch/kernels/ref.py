@@ -8,13 +8,15 @@ blocks so the ``(Q, rows, n)`` difference tensor stays bounded at the main
 path's shapes; blocking changes no arithmetic (each output element is one
 row's fixed-order sum).
 
-The squared-ED kernels of ``csrc/ed.cu`` round differently from the direct
-form, so they are held to it only within a tolerance. Bit for bit they are
-held to :func:`ed_matrix_fma_ref` and :func:`ed_min_fma_ref`, which repeat
-the kernels' own arithmetic (one ``fmaf`` chain per output, k ascending)
-through :func:`fmaf_ref`, a correctly rounded float32 fused multiply-add
-built from float64 operations. Those run on CPU and CUDA tensors alike and
-give the same bits on both; they are for checking, not for serving.
+The squared-ED kernels of ``csrc/ed.cu`` and the ``wkv6`` kernel round
+differently from the direct form, so they are held to it only within a
+tolerance. Bit for bit they are held to :func:`ed_matrix_fma_ref`,
+:func:`ed_min_fma_ref` and :func:`wkv6_fma_ref`, which repeat the kernels'
+own arithmetic (the same ``fmaf`` chains in the same order) through
+:func:`fmaf_ref`, a correctly rounded float32 fused multiply-add built from
+float64 operations. Those run on CPU and CUDA tensors alike and give the
+same bits on both (NaN payloads aside); they are for checking, not for
+serving.
 """
 from __future__ import annotations
 
@@ -70,7 +72,13 @@ def fmaf_ref(a, b, c) -> torch.Tensor:
     dev = next(x.device for x in (a, b, c) if isinstance(x, torch.Tensor))
     a, b, c = (torch.as_tensor(x, dtype=torch.float32, device=dev).to(torch.float64)
                for x in (a, b, c))
-    p = a * b
+    return _round_sum(a * b, c)
+
+
+def _round_sum(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 of ``p + c`` rounded once: ``p`` a float64 product of two
+    float32 values (exact), ``c`` a float64 holding a float32 value; the
+    second half of :func:`fmaf_ref`."""
     s = p + c
     bv = s - p
     e = (p - (s - bv)) + (c - bv)
@@ -196,4 +204,39 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         out[:, i] = torch.einsum("bhk,bhkv->bhv", rt, s + uu * kv).to(r.dtype)
         wd = wt[..., :, None]
         s = torch.where(wd == 0.0, kv, wd * s + kv)
+    return out, s
+
+
+_WKV_SPLIT = 4      # partial sums per state column in csrc/wkv6.cu
+
+
+def wkv6_fma_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                 u: torch.Tensor, state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence in the ``wkv6`` kernel's arithmetic
+    (``csrc/wkv6.cu``), bit for bit; shapes and dtypes as :func:`wkv6_ref`.
+
+    Per step, on the exactly widened r, k, v: ``kv = k_i * v_j`` rounded to
+    float32; column j's sum in 4 partials, partial p over rows i = p, p + 4,
+    ... ascending, ``acc = fmaf(r_i, fmaf(u_i, kv, S_ij), acc)`` from 0.0f
+    (a partial with no rows stays 0.0f); ``out_j = (acc_0 + acc_1) + (acc_2
+    + acc_3)``, rounded to nearest even in a bf16 ``out``; and ``S_ij =
+    kv`` where ``w_i == 0``, else ``fmaf(w_i, S_ij, kv)``. Every fmaf is
+    :func:`fmaf_ref`'s correctly rounded one."""
+    b, t, h, dk = r.shape
+    dv = v.shape[-1]
+    out = torch.empty((b, t, h, dv), dtype=r.dtype, device=r.device)
+    s = state.to(torch.float32, copy=True)
+    u64 = u.to(torch.float32).to(torch.float64)[None, :, :, None]
+    for i in range(t):
+        rt, kt, vt, wt = (x[:, i].to(torch.float32) for x in (r, k, v, w))
+        kv = kt[..., :, None] * vt[..., None, :]                  # (B, H, K, V)
+        inner = _round_sum(u64 * kv.double(), s.double())
+        prod = rt.double()[..., :, None] * inner.double()
+        acc = torch.zeros((b, h, _WKV_SPLIT, dv), dtype=torch.float32, device=r.device)
+        for lo in range(0, dk, _WKV_SPLIT):
+            n = min(_WKV_SPLIT, dk - lo)
+            acc[:, :, :n] = _round_sum(prod[:, :, lo:lo + n], acc[:, :, :n].double())
+        out[:, i] = ((acc[:, :, 0] + acc[:, :, 1]) + (acc[:, :, 2] + acc[:, :, 3])).to(r.dtype)
+        wd = wt[..., :, None]
+        s = torch.where(wd == 0.0, kv, _round_sum(wd.double() * s.double(), kv.double()))
     return out, s

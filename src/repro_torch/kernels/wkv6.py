@@ -2,10 +2,13 @@
 replaces ``repro/kernels/wkv6.py::wkv6``).
 
 CUDA tensors only: the plain version is ``kernels/ref.py::wkv6_ref`` and
-``kernels/ops.py`` chooses between them. r, k, v are float32 or bfloat16
-(one dtype): the kernel widens them as it loads them and writes ``out`` in
-that dtype; w, u and the state are float32. It loops over any T, so nothing
-is padded. ``wkv6.launches`` counts kernel launches.
+``kernels/ops.py`` chooses between them; ``kernels/ref.py::wkv6_fma_ref``
+repeats the kernel's arithmetic bit for bit. r, k, v are float32 or
+bfloat16 (one dtype): the kernel widens them as it stages them and writes
+``out`` in that dtype; w, u and the state are float32. It loops over any T,
+so nothing is padded. The kernel's launcher picks its cp.async path or its
+element path by shape and pointer alignment (``csrc/wkv6.cu``).
+``wkv6.launches`` counts kernel launches.
 """
 from __future__ import annotations
 

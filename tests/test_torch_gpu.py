@@ -22,7 +22,8 @@ out-of-core bounds allow for it (``core/engine.py`` ``_BOUND_REL``).
 ``wkv6``: ``rtol = atol = 1e-4`` in float32 (past an overflow, from the
 reset on); bf16 r/k/v are widened exactly and the state holds 1e-4, while
 the bf16 output, rounded from float32 sums in another order, holds the
-bfloat16 tolerance.
+bfloat16 tolerance; and bit for bit ``wkv6_fma_ref`` (NaNs compared as one
+word: the card's fmaf and the reference's float64 give NaNs other payloads).
 """
 import itertools
 
@@ -460,6 +461,66 @@ def test_wkv6_kernel_matches_plain(cuda, b, t, h, dk, dv, dtype):
     assert torch.equal(got[0], out) and torch.equal(got[1], sf)
 
 
+_WKV_CHUNK = 32            # csrc/wkv6.cu's default chunk of steps
+_WKV_DIMS = (1, 4, 17, 33, 64)
+
+
+def _wkv_words(x):
+    """int32 words (bf16 zero-extended), every NaN as one word."""
+    x = x.contiguous()
+    words = x.view(torch.int32) if x.dtype == torch.float32 else \
+        x.view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.where(torch.isnan(x.float()), torch.full_like(words, -1), words)
+
+
+def _hold_wkv_fma(args):
+    """The kernel's out and final state equal ``wkv6_fma_ref``'s in every
+    bit (NaNs as one word)."""
+    before = kwkv.wkv6.launches
+    got = kwkv.wkv6(*args)
+    assert kwkv.wkv6.launches == before + 1
+    for a, b in zip(got, tref.wkv6_fma_ref(*args)):
+        assert torch.equal(_wkv_words(a), _wkv_words(b))
+
+
+def _placed(x, dtype, offset):
+    """``x`` in ``dtype``, ``offset`` elements into a new flat buffer."""
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=x.device)
+    buf[offset:] = x.reshape(-1).to(dtype)
+    return buf[offset:].view(x.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", list(itertools.product(_WKV_DIMS, _WKV_DIMS)))
+def test_wkv6_kernel_equals_the_fma_reference(cuda, dk, dv, dtype):
+    """Bit for bit ``wkv6_fma_ref`` at T in {0, 1, C - 1, C, C + 1, 2C + 3,
+    512} (C the kernel's chunk), on contiguous tensors and on views whose
+    base is one row in; at K = V = 64 also one element in. K = 64 float32
+    contiguous takes the aligned (cp.async) path, K = 33 and views one
+    element in the element path."""
+    c = _WKV_CHUNK
+    layouts = [0, None] + ([1] if dk == dv == 64 else [])
+    for t in (0, 1, c - 1, c, c + 1, 2 * c + 3, 512):
+        r, k, v, w, u, s0 = wkv_inputs(dk * 100 + dv + t, 2, t, 2, dk, dv, cuda)
+        for off in layouts:
+            placed = [_placed(x, dt, x.shape[-1] if off is None else off)
+                      for x, dt in ((r, dtype), (k, dtype), (v, dtype), (w, torch.float32))]
+            _hold_wkv_fma((*placed, u, s0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", [(64, 64), (33, 17)])
+def test_wkv6_kernel_resets_in_one_chunk(cuda, dk, dv, dtype):
+    """w == 0 at some rows of the second chunk only: that chunk runs the
+    kernel's select, the others the reset-free loop; bit for bit
+    ``wkv6_fma_ref``."""
+    c = _WKV_CHUNK
+    r, k, v, w, u, s0 = wkv_inputs(77 + dk, 2, 2 * c + 3, 2, dk, dv, cuda, dtype)
+    zero = np.random.default_rng(5).random(tuple(w[:, c:c + 3].shape)) < 0.3
+    w[:, c:c + 3] = torch.where(torch.from_numpy(zero).to(cuda), 0.0, w[:, c:c + 3])
+    _hold_wkv_fma((r, k, v, w, u, s0))
+
+
 def test_wkv6_kernel_extreme_decay(cuda):
     """w at the exact boundaries (0 resets, 1 keeps), subnormal, 1 - 1e-6,
     and one extreme per channel, with a nonzero initial state."""
@@ -476,6 +537,7 @@ def test_wkv6_kernel_extreme_decay(cuda):
         assert bool(torch.isfinite(out).all())
         assert_close(out, want_o)
         assert_close(sf, want_s)
+        _hold_wkv_fma((r, k, v, w, u, s0))
 
 
 def test_wkv6_kernel_resets_an_overflowed_state(cuda):
@@ -491,6 +553,7 @@ def test_wkv6_kernel_resets_an_overflowed_state(cuda):
     assert bool(torch.isfinite(out[:, 9:]).all()) and bool(torch.isfinite(sf).all())
     assert_close(out[:, 9:], want_o[:, 9:])
     assert_close(sf, want_s)
+    _hold_wkv_fma((r, k, v, w, u, s0))
 
 
 def test_wkv6_kernel_refuses_what_it_cannot_take(cuda):

@@ -5,7 +5,9 @@ The port's ``kernels.ops.wkv6`` on CPU tensors (its plain version,
 ``ref.wkv6_ref`` and against its Pallas kernel on the interpreter
 (``kernels/ops.py::wkv6`` in ``interpret`` mode, which pads a ragged T with
 identity steps). The hand-written CUDA kernel is checked on the card by
-``tests/test_torch_gpu.py``. Inputs are made with numpy from a seed and
+``tests/test_torch_gpu.py``, bit for bit against ``wkv6_fma_ref`` (the
+kernel's fmaf chains through a correctly rounded fmaf), which is held here
+against both plain references. Inputs are made with numpy from a seed and
 handed to both packages.
 
 Tolerance policy (``tests/test_kernel_conformance.py:15-31``): float32
@@ -34,6 +36,11 @@ _TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=5e-2, atol=
 def assert_close(got, want, dtype="float32"):
     got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
     np.testing.assert_allclose(got, np.asarray(want, np.float32), **_TOL[dtype])
+
+
+def as_f32(x):
+    """A torch tensor (any float dtype) or JAX array as float32 numpy."""
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
 def inputs(seed, b, t, h, dk, dv):
@@ -155,3 +162,80 @@ def test_plain_version_is_the_oracle_loop():
     want_s = w[0, 0, 0][:, None] * s0[0, 0] + kv
     torch.testing.assert_close(out[0, 0, 0].double(), want_o, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(sf[0, 0].double(), want_s, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h,dk,dv", [
+    (2, 32, 3, 8, 8),
+    (1, 37, 2, 33, 17),           # K not a multiple of the 4 partials
+    (4, 1, 4, 16, 16),            # a decode step
+    (1, 5, 1, 1, 1),              # three partials with no rows
+    (1, 70, 1, 64, 64),           # rwkv6-7b's head, more than two chunks
+])
+def test_fma_reference_matches_the_references(b, t, h, dk, dv, dtype):
+    """``wkv6_fma_ref`` against the port's ``wkv6_ref`` and the JAX
+    ``ref.wkv6_ref`` within the stated tolerances."""
+    jx, tx = both(inputs(b * 1000 + t + 7, b, t, h, dk, dv), dtype)
+    out, sf = tref.wkv6_fma_ref(*tx)
+    assert out.dtype == tx[0].dtype and sf.dtype == torch.float32
+    assert out.shape == (b, t, h, dv) and sf.shape == (b, h, dk, dv)
+    for want_o, want_s in (tref.wkv6_ref(*tx), jref.wkv6_ref(*jx)):
+        assert_close(out, as_f32(want_o), dtype)
+        assert_close(sf, as_f32(want_s), dtype)
+
+
+def dyadic_inputs(seed, b, t, h, dk, dv):
+    """Inputs on which every operation of every reference is exact: r, k, v,
+    u in {+-0.5, +-1, +-2}, w in {0, 0.5, 1}, a small integer state; over 8
+    steps every sum stays within float32's 24 bits."""
+    rng = np.random.default_rng(seed)
+
+    def pick(vals, *shape):
+        return rng.choice(np.asarray(vals, np.float32), shape)
+
+    vals = (-2.0, -1.0, -0.5, 0.5, 1.0, 2.0)
+    return (pick(vals, b, t, h, dk), pick(vals, b, t, h, dk), pick(vals, b, t, h, dv),
+            pick((0.0, 0.5, 1.0), b, t, h, dk), pick(vals, h, dk),
+            pick((-2.0, -1.0, 0.0, 1.0, 2.0), b, h, dk, dv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dk,dv", [(8, 8), (5, 3), (1, 4)])
+def test_fma_reference_is_exact_on_dyadic_inputs(dk, dv, dtype):
+    """Where every operation is exact the order of the sums cannot matter:
+    ``wkv6_fma_ref`` equals ``wkv6_ref`` and the JAX ``ref.wkv6_ref`` (its
+    float32 out rounded to the port's bf16 out) exactly."""
+    jx, tx = both(dyadic_inputs(dk * 10 + dv, 2, 8, 2, dk, dv), dtype)
+    out, sf = tref.wkv6_fma_ref(*tx)
+    port_o, port_s = tref.wkv6_ref(*tx)
+    jax_o, jax_s = (torch.from_numpy(np.array(x, np.float32)) for x in jref.wkv6_ref(*jx))
+    assert torch.equal(out, port_o) and torch.equal(sf, port_s)
+    assert torch.equal(out, jax_o.to(out.dtype)) and torch.equal(sf, jax_s)
+    assert bool((out != 0).any())
+
+
+def test_fma_reference_resets_an_overflowed_state():
+    """The overflow of ``test_instant_forget_resets_an_overflowed_state``:
+    ``wkv6_fma_ref`` overflows too, and ``w == 0`` resets it, so every later
+    output and the final state are finite and match both references."""
+    b, t, h, dk, dv = 1, 24, 1, 4, 4
+    r, k, v, _, u, _ = inputs(11, b, t, h, dk, dv)
+    k[:, :8] = 2e19
+    v[:, :8] = 2e19
+    w = np.ones((b, t, h, dk), np.float32)
+    w[:, 8] = 0.0
+    jx, tx = both((r, k, v, w, u, np.zeros((b, h, dk, dv), np.float32)))
+    out, sf = tref.wkv6_fma_ref(*tx)
+    assert not bool(torch.isfinite(out[:, :8]).all())
+    assert bool(torch.isfinite(out[:, 9:]).all()) and bool(torch.isfinite(sf).all())
+    for want_o, want_s in (tref.wkv6_ref(*tx), jref.wkv6_ref(*jx)):
+        assert_close(out[:, 9:], as_f32(want_o)[:, 9:])
+        assert_close(sf, as_f32(want_s))
+
+
+def test_fma_reference_takes_no_steps_for_an_empty_sequence():
+    """T = 0: no output, the state returned as a copy."""
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in inputs(15, 2, 0, 3, 4, 5))
+    out, sf = tref.wkv6_fma_ref(r, k, v, w, u, s0)
+    assert out.shape == (2, 0, 3, 5) and torch.equal(sf, s0)
+    assert sf.data_ptr() != s0.data_ptr()

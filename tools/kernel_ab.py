@@ -2,7 +2,7 @@
 """Hold an older build of one of the port's CUDA sources against this
 checkout's on one CUDA card.
 
-    python3 tools/kernel_ab.py --kernel ed|lb_sax --baseline OLD.cu \
+    python3 tools/kernel_ab.py --kernel ed|lb_sax|wkv6 --baseline OLD.cu \
         [--trial LABEL=FLAGS ...] [--out FILE]
 
 ``--baseline`` is an older ``csrc/<kernel>.cu`` with the same C entry
@@ -10,11 +10,12 @@ points, for example the parent commit's (``git show
 HEAD~1:src/repro_torch/kernels/csrc/lb_sax.cu`` into a gitignored
 ``build/`` path). It is compiled with the package's flags into a temporary
 directory; the checkout's own build is the package's. Both are launched
-through the package's wrappers (``repro_torch.kernels.ed`` or
-``.lb_sax``), the baseline by standing in for the package's loaded
+through the package's wrappers (``repro_torch.kernels.ed``, ``.lb_sax``
+or ``.wkv6``), the baseline by standing in for the package's loaded
 library of that name. Each ``--trial LABEL=FLAGS`` (for example
-``A=-DED_MIN_TILES_ONLY``) also builds the checkout's source with the extra
-``nvcc`` flags, a trial state that joins every bits check and timing.
+``A=-DED_MIN_TILES_ONLY``, or ``C16=-DWKV_CHUNK=16``) also builds the
+checkout's source with the extra ``nvcc`` flags, a trial state that joins
+every bits check and timing.
 
 ``--kernel ed`` (the squared-ED kernels):
 
@@ -52,6 +53,28 @@ library of that name. Each ``--trial LABEL=FLAGS`` (for example
    and with PAA rows at +-1e15.
 2. Times at the two main shapes, baseline and checkout in turns, by both
    yardsticks as for ``ed``.
+
+``--kernel wkv6`` (the RWKV-6 recurrence):
+
+1. Bits: out and final state of every build (the baseline too) equal
+   ``kernels/ref.py::wkv6_fma_ref`` (the kernel's fmaf chains through a
+   correctly rounded fmaf), and each build's equal the baseline's, as int32
+   words (bf16 zero-extended, NaNs as one word): at every T in {0, 1, C - 1,
+   C, C + 1, 2C + 3, 512} (C = 32, the source's default chunk) x K, V in
+   {1, 4, 17, 33, 64}, float32 and bf16 r/k/v/out, B = H = 2, on
+   contiguous tensors and on views whose base is one row in (K = 33 or a
+   bf16 view of K = 4 is not 16-byte aligned: the element path), at K = V =
+   64 also one element in (the element path by pointer alone); the extreme
+   decays (w = 0, 1e-38, 1e-6, 1 - 1e-6, 1 and one of each per channel),
+   w == 0 in one chunk only (the select there, the reset-free loop
+   elsewhere), the overflow-then-reset case, and the served shapes (B=4, T=512 and
+   T=1, H=64, K=V=64, both dtypes). Prints how many cases took each path.
+2. Times at the prefill (B=4, T=512, H=64, K=V=64) and decode (T=1)
+   shapes, bf16 and float32, and at the prefill shape (bf16) with a w == 0
+   in every chunk (the kernel's select in every step), by both yardsticks
+   as for ``ed``. The trial flags of ``csrc/wkv6.cu``: ``-DWKV_CHUNK=``
+   (steps a chunk), ``-DWKV_COLS=`` (columns a thread),
+   ``-DWKV_STEP_UNROLL=``.
 
 Prints one line per timed case and a JSON line; ``--out`` also writes the
 JSON there. Exits 1 if any bit differs (2 without a card); a failed ED
@@ -309,9 +332,122 @@ def lb_timings(builds: dict) -> list:
     return rows
 
 
+WKV_CHUNK = 32                          # csrc/wkv6.cu's default chunk of steps
+WKV_TS = (0, 1, WKV_CHUNK - 1, WKV_CHUNK, WKV_CHUNK + 1, 2 * WKV_CHUNK + 3, 512)
+WKV_DIMS = (1, 4, 17, 33, 64)
+WKV_MAIN = {"prefill": (4, 512, 64, 64, 64), "decode": (4, 1, 64, 64, 64)}
+
+
+def wkv_place(x, dtype, offset: int):
+    """``x`` in ``dtype``, ``offset`` elements into a new flat buffer."""
+    import torch
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=x.device)
+    buf[offset:] = x.reshape(-1).to(dtype)
+    return buf[offset:].view(x.shape)
+
+
+def wkv_aligned(r, k, v, w) -> bool:
+    """Whether ``csrc/wkv6.cu``'s launcher takes its aligned (cp.async) path."""
+    es, dk, dv = r.element_size(), r.shape[-1], v.shape[-1]
+    return ((dk * es) % 16 == 0 and dk % 4 == 0 and (dv * es) % 16 == 0
+            and all(x.data_ptr() % 16 == 0 for x in (r, k, v, w)))
+
+
+def wkv_cases():
+    """(label, args) of the bits grid, made on the card from a seed."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    for dtype, dk, dv, t in itertools.product((torch.float32, torch.bfloat16), WKV_DIMS,
+                                              WKV_DIMS, WKV_TS):
+        layouts = {"": 0, " +1 row": None} | ({" +1 elem": 1} if dk == dv == 64 else {})
+        for tag, off in layouts.items():
+            b, h = 2, 2
+            r, k, v, w = (wkv_place(x, dt, x.shape[-1] if off is None else off)
+                          for x, dt in ((n(b, t, h, dk), dtype), (n(b, t, h, dk), dtype),
+                                        (n(b, t, h, dv), dtype),
+                                        (torch.sigmoid(n(b, t, h, dk)), torch.float32)))
+            yield f"{str(dtype)[6:]} T={t} K={dk} V={dv}{tag}", (r, k, v, w, n(h, dk),
+                                                               n(b, h, dk, dv))
+    for kind, shape in WKV_MAIN.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            yield f"{kind} {str(dtype)[6:]}", cs._wkv_inputs(g, *shape, dtype)
+    for dtype, (dk, dv) in itertools.product((torch.float32, torch.bfloat16),
+                                             ((64, 64), (33, 17))):
+        r, k, v, w, u, s0 = cs._wkv_inputs(g, 2, 2 * WKV_CHUNK + 3, 2, dk, dv, dtype)
+        one = slice(WKV_CHUNK, WKV_CHUNK + 3)
+        w[:, one] = torch.where(torch.rand(w[:, one].shape, generator=g, device="cuda") < 0.3,
+                                0.0, w[:, one])
+        yield f"w == 0 in chunk 1 only, {str(dtype)[6:]} K={dk} V={dv}", (r, k, v, w, u, s0)
+    b, t, h, dk, dv = 1, 64, 1, 4, 4
+    r, k, v, _, u, s0 = cs._wkv_inputs(g, b, t, h, dk, dv)
+    mixed = torch.stack([torch.zeros(b, t, h), torch.ones(b, t, h),
+                         torch.full((b, t, h), 1e-38), torch.full((b, t, h), 1.0 - 1e-6)],
+                        -1).cuda()
+    for wv in (0.0, 1e-38, 1e-6, 1.0 - 1e-6, 1.0, None):
+        w = mixed if wv is None else torch.full((b, t, h, dk), wv, device="cuda")
+        yield f"decay {wv if wv is not None else 'mixed'}", (r, k, v, w, u, s0)
+    k, v = k[:, :24].clone(), v[:, :24].clone()
+    k[:, :8] = 2e19
+    v[:, :8] = 2e19
+    w = torch.ones(b, 24, h, dk, device="cuda")
+    w[:, 8] = 0.0
+    yield "overflow-then-reset", (r[:, :24], k, v, w, u, torch.zeros_like(s0))
+
+
+def check_wkv6_bits(builds: dict) -> list:
+    """Every build's (out, state) against ``wkv6_fma_ref`` and each non-baseline
+    build's against the baseline's, as words; returns the differing cases."""
+    import torch
+    from repro_torch.kernels import ref, wkv6 as kwkv
+    bad, count, paths = [], 0, {True: 0, False: 0}
+    for label, a in wkv_cases():
+        paths[wkv_aligned(*a[:4])] += 1
+        want = [cs.wkv_words(x) for x in ref.wkv6_fma_ref(*a)]
+        outs = {}
+        for name, lib in builds.items():
+            with using("wkv6", lib):
+                outs[name] = [cs.wkv_words(x) for x in kwkv.wkv6(*a)]
+        for name, got in outs.items():
+            others = [("fma", want)] + ([("v1", outs["v1"])] if name != "v1" else [])
+            for what, other in others:
+                for part, x, y in zip(("out", "state"), got, other):
+                    count += 1
+                    if not torch.equal(x, y):
+                        bad.append(f"{name} vs {what}: {part} {label}")
+    print(f"[bits] {count} comparisons over {sum(paths.values())} cases ({paths[True]} on "
+          f"the aligned path, {paths[False]} on the element path): {len(bad)} differ "
+          f"{bad[:10] if bad else ''}", flush=True)
+    return bad
+
+
+def wkv_timings(builds: dict) -> list:
+    import torch
+    from repro_torch.kernels import wkv6 as kwkv
+    g = torch.Generator(device="cuda").manual_seed(70)
+    cases = []
+    for kind, dtype in itertools.product(WKV_MAIN, (torch.bfloat16, torch.float32)):
+        cases.append((kind, str(dtype)[6:], cs._wkv_inputs(g, *WKV_MAIN[kind], dtype)))
+    a = list(cs._wkv_inputs(g, *WKV_MAIN["prefill"], torch.bfloat16))
+    a[3][:, ::WKV_CHUNK, :, 0] = 0.0          # one w_i == 0 in every chunk
+    cases.append(("prefill", "bfloat16, w == 0 in every chunk", a))
+    rows = []
+    for kind, label, a in cases:
+        shape = WKV_MAIN[kind]
+        nbytes, ops = cs._wkv_cost(*shape, a[0].element_size())
+        bound = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.FP32_FLOPS)
+        rows.append(in_turns("wkv6", builds, "wkv6", shape, label,
+                             lambda a=a: kwkv.wkv6(*a), 20 if kind == "prefill" else 200,
+                             bound))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", required=True, choices=("ed", "lb_sax"),
+    ap.add_argument("--kernel", required=True, choices=("ed", "lb_sax", "wkv6"),
                     help="which source under src/repro_torch/kernels/csrc to compare")
     ap.add_argument("--baseline", required=True,
                     help="an older <kernel>.cu with the same C entry points")
@@ -338,6 +474,9 @@ def main(argv=None) -> int:
         if args.kernel == "lb_sax":
             bad = check_lb_bits(builds)
             rows = lb_timings(builds)
+        elif args.kernel == "wkv6":
+            bad = check_wkv6_bits(builds)
+            rows = wkv_timings(builds)
         else:
             bad = check_ed_bits(builds)
             with using("ed", None):
