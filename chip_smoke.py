@@ -22,14 +22,30 @@ Phases (any failure ends the run with a non-zero exit):
    backends (``kernel_mode="auto"``), held against a
    brute-force difference-form scan on the card; every kernel's launch
    counter must have risen during this phase;
-5. the disk path at the same data scale: a chunked build straight to a
-   format-v3 index directory with the bf16 codec (its tree held against
-   phase 4's), opened memory-mapped and served by ``ooc-scan`` and
-   ``ooc-local`` through ``QueryEngine`` at a 256 MiB budget, raw and bf16
-   streams, k=1 and k=10, with the threaded reader (and once with the
-   synchronous one); every answer is held against phase 4's in-memory
+5. the disk path at the same data scale: a store (``Hercules.create``, a
+   chunked build straight to a format-v3 index directory with the bf16
+   codec; its tree held against phase 4's), served memory-mapped by the
+   store's ``ooc-scan`` and ``ooc-local`` engines at a 256 MiB budget, raw
+   and bf16 streams, k=1 and k=10, with the threaded reader (and once with
+   the synchronous one); every answer is held against phase 4's in-memory
    answers bit for bit, and every kernel of the path must have launched;
-6. kernels vs plain versions at the main path's shapes, with CUDA-event
+6. the store's mutation path on that store: two journal segments of 1/32
+   of the base each (2 x 131,072 rows at the full size) appended in chunks
+   of 65,536 and 8,192 rows, each append invalidating the store's cached
+   engine; 100 queries (phase 4's first 72, 28 made from the journal rows)
+   answered with the rows pending by ``local``, ``scan``, ``ooc-scan`` and
+   ``ooc-local`` at k=1 and k=10, each held bit for bit to a brute-force
+   difference-form scan over base and journal on the card (journal hits at
+   position -1; at k=1 at least 14 of the 28 journal-made queries find
+   their neighbour in the journal); ``compact()`` to generation 1, held bit
+   for bit to a one-shot in-memory build over base and journal (tree,
+   layout, LRD, LSD), the old generation and the journal swept, the old
+   generation's handle raising ``IndexFormatError``, and every backend's
+   answers after compaction equal to the merged ones before it; the four
+   kNN kernels must launch in this phase. The index directory (two
+   generations side by side at the compaction's peak, about 14 GB at the
+   full size) is removed after this phase, also on failure;
+7. kernels vs plain versions at the main path's shapes, with CUDA-event
    times for kernel, plain version and library call (each launched from a
    host loop, as the engine launches them), and the bound;
    ``ed_matrix`` and ``decode_bf16_ed_matrix`` (on a strided view of a real
@@ -41,14 +57,14 @@ Phases (any failure ends the run with a non-zero exit):
    (``device_ms``), with their launches per run at each shape; ``ed_min``
    and ``ed_matrix`` held bit for bit to the exact fma references at both
    of ``ed_min``'s shapes and at 131,072 rows, and the ED witness;
-7. the card's answers against the CPU's on a small input (the CPU path is
+8. the card's answers against the CPU's on a small input (the CPU path is
    the one the test suite holds against the JAX reference);
-8. ``wkv6`` against its plain version and, bit for bit, against the exact
+9. ``wkv6`` against its plain version and, bit for bit, against the exact
    fma reference ``wkv6_fma_ref``: the LM path's prefill shape (B=4,
    T=512, H=64, K=V=64) with a nonzero state, the decode shape (T=1), bf16
    r/k/v as served and float32, the extreme decays and the
    overflow-then-reset case; host-loop and CUDA-graph times at both shapes;
-9. LM serving at full width: ``rwkv6-7b`` (all 32 layers, d_model 4096,
+10. LM serving at full width: ``rwkv6-7b`` (all 32 layers, d_model 4096,
    bf16 compute, float32 parameters) with random weights from a seed, 8
    requests of 512-token prompts through ``ServeEngine`` in two waves of 4,
    32 new tokens each; ``wkv6`` must launch 32 x (1 + 31) x 2 = 2,048
@@ -56,7 +72,7 @@ Phases (any failure ends the run with a non-zero exit):
    the engine's tokens; served again in float32 with the same weights, each
    first token equals the request's solo run wherever its top-2 margin
    exceeds twice the float32 logit tolerance;
-10. the card against the CPU at full width and 2 layers in float32: a
+11. the card against the CPU at full width and 2 layers in float32: a
    64-token prefill and 4 decode steps, logits within 1e-4, equal tokens.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
@@ -473,163 +489,425 @@ DISK_BUDGET_MB = 256            # 131,072-row blocks of 256 float32 values
 FULL_SERIES = 1 << 22           # the full run's collection (--num-series default)
 
 
-def phase_disk(data, queries, local, answers, disk_dir: str | None,
-               profile: bool = False):
-    """The disk-resident path at phase 4's data scale: build to a format-v3
-    directory (bf16 codec), open it memory-mapped, and serve ``ooc-scan``
-    and ``ooc-local`` under a 256 MiB budget; the directory is removed at
-    the end, also on failure. Returns (the path's kernel launches, blocks of
-    its encoded, LSD and LRD files staged on the card for phase 6, summary).
-
-    At the full size phase 1 of ``ooc-local`` seeds 1,624 of the 1,635
-    leaves, and the rest must go through phase 3 (the LSD sidecar and the
-    LB_SAX kernel) in every ``ooc-local`` call. Only a short check (fewer
-    series) may seed every leaf and skip it."""
+def disk_root(disk_dir: str | None, num: int, n: int) -> str:
+    """A new directory for the disk and store phases' index, with room for
+    two generations side by side plus the journal: the compaction writes
+    generation 1 before it sweeps generation 0."""
     if disk_dir:
         os.makedirs(disk_dir, exist_ok=True)
         root = tempfile.mkdtemp(prefix="hercules-disk-", dir=disk_dir)
     else:
         root = tempfile.mkdtemp(prefix="hercules-disk-")
     free = shutil.disk_usage(root).free
-    # lrd (4n bytes a row) + enc (2n + 4) + lsd (16), padding and the small
-    # files: about 6.5 GB at 2**22 x 256
-    need = int(data.shape[0] * (6 * data.shape[1] + 20) * 1.05) + (64 << 20)
-    log(f"[disk] index directory {root}: {free / 2**30:.1f} GiB free, the index "
-        f"needs about {need / 2**30:.1f} GiB")
-    try:
-        check(free >= need, f"{root} has too little free space (pass --disk-dir)")
-        return _disk_path(data, queries, local, answers, os.path.join(root, "idx"),
-                          profile)
-    finally:
+    # a generation: lrd (4n bytes a row) + enc (2n + 4) + lsd (16), padding
+    # and the small files, about 6.5 GB at 2**22 x 256; the journal: lrd +
+    # lsd of 1/16 of the rows; then generation 1 over both: about 14 GB
+    jrows = journal_rows(num) * 2
+    need = int((2 * num + jrows) * (6 * n + 20) * 1.05) + (128 << 20)
+    log(f"[disk] index directory {root}: {free / 2**30:.1f} GiB free, the index, "
+        f"its journal and its compacted generation need about {need / 2**30:.1f} GiB")
+    if free < need:
         shutil.rmtree(root, ignore_errors=True)
-        log(f"[disk] removed {root}")
+        fail(f"{root} has too little free space (pass --disk-dir)")
+    return root
 
 
-def _disk_path(data, queries, local, answers, path, profile):
+def ooc_delta(after, before):
+    """The streaming counters of one call of an engine the store caches
+    (``after`` minus ``before``, both ``OocTelemetry``)."""
+    import dataclasses
+    return type(after)(**{f.name: getattr(after, f.name) - getattr(before, f.name)
+                          for f in dataclasses.fields(after)})
+
+
+def phase_disk(data, queries, local, answers, root: str, profile: bool = False):
+    """The disk-resident path at phase 4's data scale: a store created at
+    ``root`` (``Hercules.create``, a chunked build straight to format v3
+    with the bf16 codec), served by ``ooc-scan`` and ``ooc-local`` engines
+    of the store under a 256 MiB budget. Returns (the path's kernel
+    launches, blocks of its encoded, LSD and LRD files staged on the card
+    for phase 7, summary, the open store for phase 6).
+
+    At the full size phase 1 of ``ooc-local`` seeds 1,624 of the 1,635
+    leaves, and the rest must go through phase 3 (the LSD sidecar and the
+    LB_SAX kernel) in every ``ooc-local`` call. Only a short check (fewer
+    series) may seed every leaf and skip it."""
     import numpy as np
     import torch
-    from repro_torch.core.engine import EngineConfig, QueryEngine, make_disk_backend
+    from repro_torch.core.engine import EngineConfig
     from repro_torch.core.index import IndexConfig
     from repro_torch.core.search import SearchConfig
     from repro_torch.core.tree import BuildConfig
     from repro_torch.data.pipeline import ArrayChunkSource
-    from repro_torch.storage import build_index_to_disk, open_index
+    from repro_torch.storage import Hercules
 
     num, n = data.shape
+    path = os.path.join(root, "idx")
     need_sax = num >= FULL_SERIES
     t0 = time.perf_counter()
     host = data.cpu().numpy()
     log(f"[disk] collection copied to the host in {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
-    manifest = build_index_to_disk(
-        ArrayChunkSource(host, 1 << 18), path,
-        IndexConfig(build=BuildConfig(leaf_capacity=4096)), codec="bf16",
-        prefetch="thread")
+    # the build's reader mode comes from the config: the threaded reader
+    hx = Hercules.create(
+        path, IndexConfig(build=BuildConfig(leaf_capacity=4096),
+                          search=SearchConfig(prefetch="thread")),
+        data=ArrayChunkSource(host, 1 << 18), codec="bf16")
     build_s = time.perf_counter() - t0
     del host
-    b = manifest["extra"]["build"]
+    b = hx.manifest["extra"]["build"]
     sizes = {name: os.path.getsize(os.path.join(path, name))
              for name in ("lrd.npy", "enc.npy", "lsd.npy", "tree.npz", "layout.npz")}
-    log(f"[disk] built in {build_s:.2f}s: tree_seconds {b['tree_seconds']}, "
-        f"write_seconds {b['write_seconds']} (chunks of {b['chunk_size']} rows, "
-        f"{b['num_chunks']} chunks, prefetch {b['prefetch']}); file bytes {sizes}")
+    log(f"[disk] store created in {build_s:.2f}s (the build, then the open's checksum "
+        f"pass): tree_seconds {b['tree_seconds']}, write_seconds {b['write_seconds']} "
+        f"(chunks of {b['chunk_size']} rows, {b['num_chunks']} chunks, prefetch "
+        f"{b['prefetch']}); file bytes {sizes}")
     log("[disk] the files were just written, so the reads below may come from "
         "the page cache rather than the disk")
 
     summary = {"build_s": build_s, "tree_s": b["tree_seconds"],
                "write_s": b["write_seconds"], "bytes": sizes, "calls": {}}
-    with open_index(path) as saved:
-        mem = local.index
-        for field in mem.tree._fields:
-            check(torch.equal(getattr(saved.tree, field), getattr(mem.tree, field).cpu()),
-                  f"disk build: tree field {field} differs from the in-memory build")
-        for field in ("perm", "leaf_start", "leaf_count"):
-            check(np.array_equal(saved.small[field],
-                                 getattr(mem.layout, field).cpu().numpy()),
-                  f"disk build: {field} differs from the in-memory build")
-        check(saved.n_pad == mem.layout.lrd.shape[0] and saved.codec == "bf16",
-              "disk build: n_pad or codec differs")
-        log(f"[disk] the disk build's tree, perm, leaf_start and leaf_count equal the "
-            f"in-memory build's; n_pad {saved.n_pad}, codec {saved.codec}")
+    saved = hx.saved
+    mem = local.index
+    for field in mem.tree._fields:
+        check(torch.equal(getattr(saved.tree, field), getattr(mem.tree, field).cpu()),
+              f"disk build: tree field {field} differs from the in-memory build")
+    for field in ("perm", "leaf_start", "leaf_count"):
+        check(np.array_equal(saved.small[field],
+                             getattr(mem.layout, field).cpu().numpy()),
+              f"disk build: {field} differs from the in-memory build")
+    check(saved.n_pad == mem.layout.lrd.shape[0] and saved.codec == "bf16",
+          "disk build: n_pad or codec differs")
+    log(f"[disk] the disk build's tree, perm, leaf_start and leaf_count equal the "
+        f"in-memory build's; n_pad {saved.n_pad}, codec {saved.codec}")
 
-        runs = [(name, codec, k, "thread") for name in ("ooc-scan", "ooc-local")
-                for codec in ("raw", "bf16") for k in (1, 10)]
-        runs.append(("ooc-local", "bf16", 10, "sync"))
-        sax_read = False
-        reset_counters()
-        for name, codec, k, prefetch in runs:
-            backend = make_disk_backend(
-                name, saved, search=SearchConfig(codec=codec, prefetch=prefetch),
-                memory_budget_mb=DISK_BUDGET_MB)
-            eng = QueryEngine(backend)
-            before = read_counters()
-            t0 = time.perf_counter()
-            res = eng.knn(queries, k=k)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            after = read_counters()
+    runs = [(name, codec, k, "thread") for name in ("ooc-scan", "ooc-local")
+            for codec in ("raw", "bf16") for k in (1, 10)]
+    runs.append(("ooc-local", "bf16", 10, "sync"))
+    sax_read = False
+    reset_counters()
+    for name, codec, k, prefetch in runs:
+        eng = hx.engine(name, search=SearchConfig(codec=codec, prefetch=prefetch),
+                        memory_budget_mb=DISK_BUDGET_MB)
+        before, t_before = read_counters(), eng.telemetry().ooc
+        t0 = time.perf_counter()
+        res = eng.knn(queries, k=k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = read_counters()
+        t = ooc_delta(eng.telemetry().ooc, t_before)
+        tag = f"{name} {codec} k={k} {prefetch}"
+        log(f"[disk] {tag}: {1e3 * dt / len(queries):.3f} ms/query, blocks "
+            f"{t.blocks}, rows_streamed {t.rows_streamed}, bytes_streamed "
+            f"{t.bytes_streamed}, read_seconds {t.read_seconds:.3f}, "
+            f"read_wait_seconds {t.read_wait_seconds:.3f}, overlap_blocks "
+            f"{t.overlap_blocks}, sax_rows_read {t.sax_rows_read}, "
+            f"codec_refine_rows {t.codec_refine_rows}, codec_fallbacks "
+            f"{t.codec_fallbacks}, launches "
+            f"{ {key: after[key] - before[key] for key in after} }")
+        summary["calls"][tag] = {"ms_per_query": 1e3 * dt / len(queries),
+                                 "rows_streamed": t.rows_streamed,
+                                 "codec_fallbacks": t.codec_fallbacks,
+                                 "launches": {key: after[key] - before[key]
+                                              for key in after}}
+        want = answers[("local" if name == "ooc-local" else "scan", k)]
+        check(torch.equal(res.dists, want.dists),
+              f"{tag}: dists are not bit-identical to the in-memory "
+              f"{'local' if name == 'ooc-local' else 'scan'}")
+        check(torch.equal(res.ids.long(), want.ids.long()),
+              f"{tag}: ids differ from the in-memory answers "
+              f"({int((res.ids.long() != want.ids.long()).sum())} entries)")
+        if codec == "bf16":
+            launched = after["decode_bf16_ed_matrix"] - before["decode_bf16_ed_matrix"]
+            # a fallback streams raw blocks too; those need no decode
+            need = t.blocks if t.codec_fallbacks == 0 else 1
+            check(launched >= need, f"{tag}: decode_bf16_ed_matrix launched "
+                                    f"{launched} times for {t.blocks} blocks")
+        if name == "ooc-local" and (need_sax or t.sax_rows_read):
+            # phase 3: the LSD sidecar goes through the LB_SAX kernel
+            check(t.sax_rows_read > 0, f"{tag}: no LSD rows were read")
+            check(after["lb_sax_matrix"] > before["lb_sax_matrix"],
+                  f"{tag}: lb_sax_matrix never launched")
+        sax_read = sax_read or t.sax_rows_read > 0
+    launches = read_counters()
+    log(f"[disk] kernel launches during the disk path: {launches}")
+    for kname, count in launches.items():
+        # a short check may seed every leaf: then phase 3, the LB_SAX
+        # pass, has nothing to filter
+        if kname != "lb_sax_matrix" or sax_read or need_sax:
+            check(count > 0, f"disk path: {kname} was never launched")
+    log("[disk] every answer equals the in-memory answers: ooc-local dists "
+        "bit-identical to local, ooc-scan dists bit-identical to scan, ids equal")
+    if profile:
+        for name, codec, k, bucket in (("ooc-scan", "bf16", 10, None),
+                                       ("ooc-scan", "raw", 1, None),
+                                       ("ooc-local", "raw", 1, None),
+                                       ("ooc-local", "raw", 1, len(queries))):
+            eng = hx.engine(name, search=SearchConfig(codec=codec, prefetch="thread"),
+                            memory_budget_mb=DISK_BUDGET_MB,
+                            engine_config=EngineConfig(
+                                bucket_sizes=(bucket,) if bucket else ()))
+            trace(f"{name} {codec} k={k}, {len(queries)} queries, bucket "
+                  f"{bucket or 'pow2'}", lambda: eng.knn(queries, k=k))
             t = eng.telemetry().ooc
-            tag = f"{name} {codec} k={k} {prefetch}"
-            log(f"[disk] {tag}: {1e3 * dt / len(queries):.3f} ms/query, blocks "
-                f"{t.blocks}, rows_streamed {t.rows_streamed}, bytes_streamed "
-                f"{t.bytes_streamed}, read_seconds {t.read_seconds:.3f}, "
-                f"read_wait_seconds {t.read_wait_seconds:.3f}, overlap_blocks "
-                f"{t.overlap_blocks}, sax_rows_read {t.sax_rows_read}, "
-                f"codec_refine_rows {t.codec_refine_rows}, codec_fallbacks "
-                f"{t.codec_fallbacks}, launches "
-                f"{ {key: after[key] - before[key] for key in after} }")
-            summary["calls"][tag] = {"ms_per_query": 1e3 * dt / len(queries),
-                                     "rows_streamed": t.rows_streamed,
-                                     "codec_fallbacks": t.codec_fallbacks,
-                                     "launches": {key: after[key] - before[key]
-                                                  for key in after}}
-            want = answers[("local" if name == "ooc-local" else "scan", k)]
-            check(torch.equal(res.dists, want.dists),
-                  f"{tag}: dists are not bit-identical to the in-memory "
-                  f"{'local' if name == 'ooc-local' else 'scan'}")
-            check(torch.equal(res.ids.long(), want.ids.long()),
-                  f"{tag}: ids differ from the in-memory answers "
-                  f"({int((res.ids.long() != want.ids.long()).sum())} entries)")
-            if codec == "bf16":
-                launched = after["decode_bf16_ed_matrix"] - before["decode_bf16_ed_matrix"]
-                # a fallback streams raw blocks too; those need no decode
-                need = t.blocks if t.codec_fallbacks == 0 else 1
-                check(launched >= need, f"{tag}: decode_bf16_ed_matrix launched "
-                                        f"{launched} times for {t.blocks} blocks")
-            if name == "ooc-local" and (need_sax or t.sax_rows_read):
-                # phase 3: the LSD sidecar goes through the LB_SAX kernel
-                check(t.sax_rows_read > 0, f"{tag}: no LSD rows were read")
-                check(after["lb_sax_matrix"] > before["lb_sax_matrix"],
-                      f"{tag}: lb_sax_matrix never launched")
-            sax_read = sax_read or t.sax_rows_read > 0
-        launches = read_counters()
-        log(f"[disk] kernel launches during the disk path: {launches}")
-        for kname, count in launches.items():
-            # a short check may seed every leaf: then phase 3, the LB_SAX
-            # pass, has nothing to filter
-            if kname != "lb_sax_matrix" or sax_read or need_sax:
-                check(count > 0, f"disk path: {kname} was never launched")
-        log("[disk] every answer equals the in-memory answers: ooc-local dists "
-            "bit-identical to local, ooc-scan dists bit-identical to scan, ids equal")
-        if profile:
-            for name, codec, k, bucket in (("ooc-scan", "bf16", 10, None),
-                                           ("ooc-scan", "raw", 1, None),
-                                           ("ooc-local", "raw", 1, None),
-                                           ("ooc-local", "raw", 1, len(queries))):
-                eng = QueryEngine(
-                    make_disk_backend(name, saved, memory_budget_mb=DISK_BUDGET_MB,
-                                      search=SearchConfig(codec=codec, prefetch="thread")),
-                    EngineConfig(bucket_sizes=(bucket,) if bucket else ()))
-                trace(f"{name} {codec} k={k}, {len(queries)} queries, bucket "
-                      f"{bucket or 'pow2'}", lambda: eng.knn(queries, k=k))
-                t = eng.telemetry().ooc
-                log(f"[profile]   rows_streamed {t.rows_streamed}, blocks {t.blocks}, "
-                    f"read_wait_seconds {t.read_wait_seconds:.3f}")
-        rows = min(num, 1 << 17)
-        enc = torch.from_numpy(np.array(saved._mapped("enc")[:rows])).cuda()
-        lsd = torch.from_numpy(np.array(saved._mapped("lsd")[:rows])).cuda()
-        lrd = torch.from_numpy(np.array(saved._mapped("lrd")[:rows])).cuda()
-    return launches, (enc, lsd, lrd), summary
+            log(f"[profile]   rows_streamed {t.rows_streamed}, blocks {t.blocks}, "
+                f"read_wait_seconds {t.read_wait_seconds:.3f}")
+    rows = min(num, 1 << 17)
+    enc = torch.from_numpy(np.array(saved._mapped("enc")[:rows])).cuda()
+    lsd = torch.from_numpy(np.array(saved._mapped("lsd")[:rows])).cuda()
+    lrd = torch.from_numpy(np.array(saved._mapped("lrd")[:rows])).cuda()
+    return launches, (enc, lsd, lrd), summary, hx
+
+
+def journal_rows(num: int) -> int:
+    """Rows of each of the store phase's two journal segments: 1/32 of the
+    base, so 2 x 131,072 = 2**18 rows (6.25%) at the full 2**22."""
+    return max(num // 32, 1)
+
+
+JOURNAL_SEEDS = (7, 8)          # the segments' draws; phase 4 draws seeds 0, 1, 5, 6
+JOURNAL_CHUNKS = (1 << 16, 8192)  # append chunk sizes: large, the default
+STORE_JOURNAL_QUERIES = 28
+
+
+def phase_store(hx, data, queries, summary):
+    """The store's mutation path on phase 5's store (mode ``"a"``): two
+    journal segments appended, 100 queries (phase 4's first 72, and 28 made
+    from the journal rows) answered with the rows pending by ``local``,
+    ``scan``, ``ooc-scan`` and ``ooc-local`` at k=1 and k=10, each held bit
+    for bit against a brute-force difference-form scan over A||J on the
+    card; plan invalidation on every append; then ``compact()`` to
+    generation 1, held against a one-shot in-memory build over A||J (tree,
+    layout, LRD, LSD bit for bit), the old generation and the journal swept,
+    a handle to the old generation loud, and the answers after compaction
+    equal to those before it. The four kNN kernels must launch in this
+    phase. Returns the phase's summary."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import dense_scan_knn, make_disk_backend
+    from repro_torch.core.index import HerculesIndex
+    from repro_torch.data.synthetic import make_query_workload, random_walks
+    from repro_torch.storage import IndexFormatError
+    from repro_torch.storage import store as store_mod
+
+    num, n = data.shape
+    seg = journal_rows(num)
+    out: dict = {"journal_rows": 2 * seg, "appends": [], "ms_per_query": {}}
+    reset_counters()
+
+    # the journal: two segments of random walks from seeds phase 4 does not use
+    journal = [random_walks(seg, n, seed=s, device="cpu").numpy() for s in JOURNAL_SEEDS]
+    j_card = torch.from_numpy(np.concatenate(journal)).cuda()
+    base_q = queries[:min(72, len(queries))]
+    j_q = make_query_workload(j_card, STORE_JOURNAL_QUERIES, "5%", seed=9)
+    q = torch.cat([base_q, j_q])
+    nq = q.shape[0]
+    log(f"[store] {nq} queries: phase 4's first {base_q.shape[0]} and "
+        f"{STORE_JOURNAL_QUERIES} made from the journal rows at the 5% hardness")
+
+    # appends, each with an engine of the store in its cache that has served
+    # one call: every append must invalidate it and drop it from the cache
+    for i, (rows, chunk) in enumerate(zip(journal, JOURNAL_CHUNKS)):
+        eng = hx.engine("ooc-local", memory_budget_mb=DISK_BUDGET_MB)
+        eng.knn(q[:8], k=1)
+        pc0 = eng.telemetry().plan_cache
+        t0 = time.perf_counter()
+        rec = hx.append(rows, chunk_size=chunk,
+                        provenance={"kind": "synthetic-torch", "seed": JOURNAL_SEEDS[i],
+                                    "num": seg, "length": n})
+        dt = time.perf_counter() - t0
+        pc = eng.telemetry().plan_cache
+        d = hx.describe()
+        log(f"[store] append {rec['name']}: {rec['rows']} rows in chunks of {chunk} in "
+            f"{dt:.3f}s ({rec['rows'] / dt:.0f} rows/s, "
+            f"{rec['rows'] * n * 4 / dt / 2**20:.1f} MiB/s of float32); the engine's "
+            f"plan cache: invalidations {pc0.invalidations} -> {pc.invalidations}, "
+            f"size {pc0.size} -> {pc.size}; describe {d}")
+        check(pc.invalidations == pc0.invalidations + 1 and pc.size == 0,
+              f"append {i}: the cached engine was not invalidated")
+        check(hx.engine("ooc-local", memory_budget_mb=DISK_BUDGET_MB) is not eng,
+              f"append {i}: the store kept serving its old engine")
+        check(d["pending_rows"] == (i + 1) * seg and d["journal_segments"] == i + 1,
+              f"append {i}: describe() shows {d}")
+        out["appends"].append({"rows": rec["rows"], "chunk": chunk, "s": dt,
+                               "rows_per_s": rec["rows"] / dt})
+        del eng
+
+    # the oracle: a brute-force difference-form scan over A||J on the card
+    aj = torch.cat([data, j_card])
+    del j_card
+    t0 = time.perf_counter()
+    ref_d, ref_p = dense_scan_knn(aj, q, k=10)
+    torch.cuda.synchronize()
+    log(f"[store] brute-force difference-form scan over A||J ({aj.shape[0]} rows): "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    backends = ("local", "scan", "ooc-scan", "ooc-local")
+
+    def timed_call(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0) / nq
+
+    def made_engine(name):
+        t0 = time.perf_counter()
+        eng = hx.engine(name, memory_budget_mb=DISK_BUDGET_MB)
+        log(f"[store] {name} engine over generation {hx.generation} made in "
+            f"{time.perf_counter() - t0:.2f}s")
+        return eng
+
+    before_compact = {}
+    for name in backends:
+        eng = made_engine(name)
+        for k in (1, 10):
+            # the base alone on the same engine, then the call with the
+            # journal merged: their difference is the merge's cost
+            _, base_ms = timed_call(lambda: eng.knn(q, k=k))
+            res, ms = timed_call(
+                lambda: hx.query(q, k, backend=name, memory_budget_mb=DISK_BUDGET_MB))
+            tag = f"{name} k={k}"
+            out["ms_per_query"][f"{tag} base only"] = base_ms
+            want_d, want_p = ref_d[:, :k], ref_p[:, :k]
+            check(torch.equal(res.dists, want_d),
+                  f"[store] {tag}: merged dists are not bit-identical to the scan over "
+                  f"A||J ({int((res.dists != want_d).sum())} entries)")
+            check(torch.equal(res.ids.long(), want_p.long()),
+                  f"[store] {tag}: merged ids differ from the scan over A||J "
+                  f"({int((res.ids.long() != want_p.long()).sum())} entries)")
+            in_j = res.ids >= num
+            check(bool((res.positions[in_j] == -1).all())
+                  and bool((res.positions[~in_j] >= 0).all()),
+                  f"[store] {tag}: journal hits must carry position -1, base hits >= 0")
+            hits = int(in_j[base_q.shape[0]:, 0].sum())
+            if k == 1:
+                check(hits >= STORE_JOURNAL_QUERIES // 2,
+                      f"[store] {tag}: only {hits} of the {STORE_JOURNAL_QUERIES} "
+                      f"journal-made queries found their nearest neighbour in the journal")
+            before_compact[(name, k)] = res
+            out["ms_per_query"][tag] = ms
+            log(f"[store] {tag} with {2 * seg} rows pending: {ms:.3f} ms/query, the "
+                f"base alone {base_ms:.3f} (merge {ms - base_ms:+.3f}); "
+                f"{int(in_j.sum())} journal hits ({hits} first neighbours of the "
+                f"journal-made queries); dists bit-identical to the scan over A||J, "
+                f"ids equal")
+        del eng
+
+    # compaction to generation 1, with _BaseRows' gathers timed (on the
+    # reader thread, beside the build)
+    old = hx.saved
+    stale = make_disk_backend("ooc-scan", hx, memory_budget_mb=DISK_BUDGET_MB)
+    gather = {"s": 0.0, "rows": 0, "calls": 0}
+    getitem = store_mod._BaseRows.__getitem__
+
+    def timed_getitem(self, sl):
+        t0 = time.perf_counter()
+        rows = getitem(self, sl)
+        gather["s"] += time.perf_counter() - t0
+        gather["rows"] += rows.shape[0]
+        gather["calls"] += 1
+        return rows
+
+    gen0_files = sorted(os.listdir(hx.path))
+    store_mod._BaseRows.__getitem__ = timed_getitem
+    try:
+        t0 = time.perf_counter()
+        manifest = hx.compact(chunk_size=1 << 18)
+        compact_s = time.perf_counter() - t0
+    finally:
+        store_mod._BaseRows.__getitem__ = getitem
+    b = manifest["extra"]["build"]
+    out.update(compact_s=compact_s, tree_s=b["tree_seconds"], write_s=b["write_seconds"],
+               gather_s=gather["s"], gather_rows=gather["rows"], gather_calls=gather["calls"])
+    log(f"[store] compacted {2 * seg} journal rows into generation {hx.generation} in "
+        f"{compact_s:.2f}s: tree_seconds {b['tree_seconds']}, write_seconds "
+        f"{b['write_seconds']} (chunks of {b['chunk_size']}, prefetch {b['prefetch']}); "
+        f"_BaseRows gathered {gather['rows']} base rows in {gather['calls']} slices in "
+        f"{gather['s']:.2f}s ({gather['rows'] / max(gather['s'], 1e-9):.0f} rows/s, "
+        f"{gather['rows'] / num:.1f} passes over the base)")
+    files = sorted(os.listdir(hx.path))
+    log(f"[store] files before: {gen0_files}; after: {files}")
+    check(hx.generation == 1 and hx.pending_rows == 0 and hx.base_rows == num + 2 * seg,
+          f"[store] after compact: {hx.describe()}")
+    check(not os.listdir(os.path.join(hx.path, "journal")),
+          "[store] the journal segments were not swept")
+    check(not {"lrd.npy", "enc.npy", "lsd.npy", "tree.npz", "layout.npz"} & set(files),
+          "[store] generation 0's files were not swept")
+    check(old.closed, "[store] the old generation's handle is still open")
+    for what, fn in (("SavedIndex", lambda: old._mapped("lrd")),
+                     ("ooc-scan backend", lambda: stale.knn(q[:1], k=1))):
+        try:
+            fn()
+        except IndexFormatError as e:
+            log(f"[store] the old generation's {what} raises IndexFormatError: {e}")
+        else:
+            fail(f"[store] the old generation's {what} did not raise")
+    del old, stale
+
+    # the one-shot build over A||J on the card, held to the compacted files
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one = HerculesIndex.build(aj, hx.config)
+    torch.cuda.synchronize()
+    out["oneshot_build_s"] = time.perf_counter() - t0
+    out["oneshot_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    saved = hx.saved
+    for field in one.tree._fields:
+        check(torch.equal(getattr(saved.tree, field), getattr(one.tree, field).cpu()),
+              f"[store] compacted tree field {field} differs from the one-shot build")
+    for field, arr in saved.small.items():
+        check(np.array_equal(arr, getattr(one.layout, field).cpu().numpy()),
+              f"[store] compacted layout field {field} differs from the one-shot build")
+    for field in ("series_len", "max_leaf", "num_leaves", "num_series"):
+        check(getattr(saved, field) == getattr(one.layout, field),
+              f"[store] compacted {field} differs from the one-shot build")
+    for field in ("lrd", "lsd"):
+        mapped, mem = saved._mapped(field), getattr(one.layout, field)
+        check(mapped.shape == tuple(mem.shape), f"[store] {field} shapes differ")
+        for lo in range(0, mapped.shape[0], 1 << 18):
+            blk = torch.from_numpy(np.array(mapped[lo:lo + (1 << 18)])).cuda()
+            check(torch.equal(blk, mem[lo:lo + (1 << 18)]),
+                  f"[store] compacted {field} rows {lo}.. differ from the one-shot build")
+    log(f"[store] the compacted tree, layout, LRD and LSD equal the one-shot build over "
+        f"A||J bit for bit (one-shot build {out['oneshot_build_s']:.2f}s, peak device "
+        f"memory {out['oneshot_peak_gib']:.2f} GiB)")
+    del one, aj, saved
+
+    for name in backends:
+        made_engine(name)
+        for k in (1, 10):
+            res, ms = timed_call(
+                lambda: hx.query(q, k, backend=name, memory_budget_mb=DISK_BUDGET_MB))
+            want = before_compact[(name, k)]
+            check(torch.equal(res.dists, want.dists) and torch.equal(res.ids, want.ids),
+                  f"[store] {name} k={k}: the answers after compaction differ from "
+                  f"the merged answers before it")
+            check(bool((res.positions >= 0).all()),
+                  f"[store] {name} k={k}: a position after compaction is negative")
+            out["ms_per_query"][f"{name} k={k} compacted"] = ms
+    log("[store] after compaction every backend's answers equal the merged answers "
+        "before it (dists bit-identical, ids equal, positions >= 0): ms/query "
+        + ", ".join(f"{t} {v:.3f}" for t, v in out["ms_per_query"].items()
+                    if t.endswith("compacted")))
+
+    launches = read_counters()
+    out["launches"] = launches
+    log(f"[store] kernel launches during the store phase: {launches}")
+    for kname, count in launches.items():
+        check(count > 0, f"store path: {kname} was never launched")
+    ref = {"local": "local_k{}", "scan": "scan_k{}"}
+    for name in backends:
+        for k in (1, 10):
+            if name in ref:
+                was = summary["ms_per_query"][ref[name].format(k)]
+            else:
+                was = summary["disk"]["calls"][f"{name} bf16 k={k} thread"]["ms_per_query"]
+            now = out["ms_per_query"][f"{name} k={k}"]
+            log(f"[store] {name} k={k}: {now:.3f} ms/query with the journal merged against "
+                f"{was:.3f} ms/query in phase {4 if name in ref else 5} ({now - was:+.3f}; "
+                f"the same engine without the merge: "
+                f"{out['ms_per_query'][f'{name} k={k} base only']:.3f})")
+    return out
 
 
 def phase_disk_kernels(queries, blocks, launches):
@@ -1026,7 +1304,7 @@ def phase_wkv6_kernel():
     """``wkv6`` against its plain version (within the tolerances) and
     against the exact fma reference (bit for bit) on the card at the LM
     path's prefill and decode shapes, with bf16 r, k, v as served and in
-    float32 (phase 10's path), and on the extreme decays and the
+    float32 (phase 11's path), and on the extreme decays and the
     overflow-then-reset case; times at both shapes by the host loop and by a
     CUDA graph. Returns the kernel's row for the ``{"kernels": ...}`` line
     (its launches are filled in by the serving phase), with ``by_shape``:
@@ -1335,8 +1613,17 @@ def main(argv=None) -> int:
     timed("adversarial", phase_adversarial)
     data, queries, local, launches, answers, summary = timed(
         "main", phase_main, args.num_series, args.queries)
-    disk_launches, blocks, summary["disk"] = timed(
-        "disk", phase_disk, data, queries, local, answers, args.disk_dir, args.profile)
+    root = disk_root(args.disk_dir, *data.shape)
+    try:
+        disk_launches, blocks, summary["disk"], hx = timed(
+            "disk", phase_disk, data, queries, local, answers, root, args.profile)
+        try:
+            summary["store"] = timed("store", phase_store, hx, data, queries, summary)
+        finally:
+            hx.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        log(f"[disk] removed {root}")
     rows, shapes = timed("kernel_timing", phase_kernel_timing, data, queries, local, launches)
     disk_row, ooc_min_row, disk_shapes = timed("disk_kernels", phase_disk_kernels, queries,
                                                blocks, disk_launches)
@@ -1401,7 +1688,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_lm_cpu_agreement()
     summary["lm"]["phases_s"] = time.perf_counter() - t_lm
-    log(f"[lm] the LM phases (8-10) took {summary['lm']['phases_s']:.1f}s")
+    log(f"[lm] the LM phases (9-11) took {summary['lm']['phases_s']:.1f}s")
     log(f"[main] summary {json.dumps(summary)}")
     phase_s["lm"] = round(summary["lm"]["phases_s"], 1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")

@@ -974,6 +974,7 @@ class PlanCacheTelemetry:
     capacity: int = 0
     compiles: int = 0
     compile_s: float = 0.0
+    invalidations: int = 0
 
 
 @dataclasses.dataclass
@@ -1064,10 +1065,19 @@ class QueryEngine:
         self._t = {
             "calls": 0, "queries": 0,
             "hits": 0, "misses": 0, "evictions": 0,
+            "invalidations": 0,
             "compile_s": 0.0, "exec_s": 0.0, "last_exec_s": 0.0,
             "paths": np.zeros(4, np.int64), "path_unknown": 0,
             "eapca_pr_sum": 0.0, "sax_pr_sum": 0.0, "stat_queries": 0,
         }
+
+    def invalidate(self) -> None:
+        """Drop every cached plan. Called when the data a plan was bound
+        against changes underneath the backend (the store handle
+        :class:`repro_torch.storage.store.Hercules` appended or compacted),
+        so a stale plan can never serve the mutated collection."""
+        self._plans.clear()
+        self._t["invalidations"] += 1
 
     def _bucket(self, qn: int) -> int:
         for b in sorted(self.config.bucket_sizes):
@@ -1164,7 +1174,8 @@ class QueryEngine:
                 hits=t["hits"], misses=t["misses"],
                 evictions=t["evictions"], size=len(self._plans),
                 capacity=self.config.plan_cache_size,
-                compiles=t["misses"], compile_s=t["compile_s"]),
+                compiles=t["misses"], compile_s=t["compile_s"],
+                invalidations=t["invalidations"]),
             latency=LatencyTelemetry(
                 total=t["exec_s"], last=t["last_exec_s"],
                 mean_per_call=t["exec_s"] / max(t["calls"], 1),
@@ -1260,7 +1271,7 @@ def make_backend(name: str, data, *, index_config: IndexConfig | None = None,
                        mxu=name == "scan-mxu")
 
 
-def make_disk_backend(name: str, path_or_saved, *,
+def make_disk_backend(name: str, store, *,
                       search: SearchConfig | None = None,
                       memory_budget_mb: float = 64.0,
                       verify: bool = True,
@@ -1269,9 +1280,11 @@ def make_disk_backend(name: str, path_or_saved, *,
     """Serve a saved index by backend name on ``device`` (default: the CUDA
     device).
 
-    ``path_or_saved`` is an index directory or an open ``SavedIndex``.
-    ``local``/``scan`` materialize the saved arrays into the in-memory
-    backends (bit-identical to the ones built from the original data);
+    ``store`` is an index directory, an open ``SavedIndex``, or a
+    :class:`~repro_torch.storage.store.Hercules` handle (the backend then
+    serves the handle's current base index). ``local``/``scan``
+    materialize the saved arrays into the in-memory backends
+    (bit-identical to the ones built from the original data);
     ``ooc-scan``/``ooc-local`` keep the big files memory-mapped and stream
     them under ``memory_budget_mb``. ``prefetch`` overrides
     ``SearchConfig.prefetch`` (``"thread"``: reader thread + pinned host
@@ -1281,8 +1294,14 @@ def make_disk_backend(name: str, path_or_saved, *,
 
     resolve_backend_name(name, kind="disk")
     dev = resolve_device(device)
-    saved = open_index(os.fspath(path_or_saved), verify=verify) \
-        if isinstance(path_or_saved, (str, os.PathLike)) else path_or_saved
+    if isinstance(store, (str, os.PathLike)):
+        saved = open_index(os.fspath(store), verify=verify)
+    else:
+        # a Hercules handle exposes .saved; a SavedIndex is used directly
+        saved = getattr(store, "saved", store)
+        if saved is None:
+            raise ValueError(f"{store!r} has no base index to serve; append "
+                             f"rows and compact() first")
     if prefetch is not None:
         search = dataclasses.replace(search or saved.config.search,
                                      prefetch=prefetch)

@@ -1,16 +1,18 @@
-"""HerculesIndex -- build / carry-across / query facade on PyTorch.
+"""HerculesIndex -- build / persist / query facade on PyTorch.
 
 Port of ``repro/core/index.py``. ``build`` runs index construction and
 index writing (tree build, synopses, LRD/LSD layout) on one device;
-``knn`` is the §3.4 query pipeline. :meth:`HerculesIndex.from_arrays` and
-:meth:`HerculesIndex.load` take over an index the JAX package built (the
-``.npz`` its ``HerculesIndex.save`` writes), so the port's query path can be
-checked over a reference-built index.
+``knn`` is the §3.4 query pipeline. :meth:`HerculesIndex.save` and
+:meth:`HerculesIndex.load` write and read the reference's single-file
+``.npz`` (the same array names and ``__meta__`` JSON), so either package
+loads the other's file; :meth:`HerculesIndex.from_arrays` takes over the
+arrays of one.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any
 
 import numpy as np
@@ -88,6 +90,23 @@ class HerculesIndex:
         return cls(tree, layout, config, tree_stats(tree)["max_depth"])
 
     @classmethod
+    def build_streaming(cls, source, config: IndexConfig | None = None,
+                        prefetch: str | None = None,
+                        device: str | torch.device | None = None
+                        ) -> "HerculesIndex":
+        """Chunk-streamed build from a
+        :class:`repro_torch.data.pipeline.ChunkSource` on ``device`` (default:
+        the CUDA device): device residency bounded by two chunks during the
+        tree build, result bit-identical to :meth:`build` on the whole
+        collection. ``prefetch`` (default: the config's ``search.prefetch``)
+        picks the chunk reader. For an on-disk index with appends, use
+        ``repro_torch.storage.store.Hercules.create(path, config,
+        data=source)``."""
+        from repro_torch.storage.build import build_index_streaming
+        return build_index_streaming(source, config, prefetch=prefetch,
+                                     device=device)
+
+    @classmethod
     def from_arrays(cls, arrays: dict[str, np.ndarray], meta: dict,
                     device: str | torch.device | None = None) -> "HerculesIndex":
         """An index from the reference's saved state: the ``tree.<field>`` /
@@ -105,11 +124,34 @@ class HerculesIndex:
                              sax_segments=int(meta["sax_segments"]))
         return cls(tree, HerculesLayout(**lay), config, int(meta["max_depth"]))
 
+    def save(self, path: str) -> None:
+        """Write the index to one ``.npz`` file (``tree.<field>`` and
+        ``layout.<field>`` arrays plus a ``__meta__`` JSON header), published
+        atomically by ``os.replace``: the reference's format, which its
+        ``HerculesIndex.load`` reads."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        arrays = {f"tree.{name}": val.cpu().numpy()
+                  for name, val in self.tree._asdict().items()}
+        arrays.update({f"layout.{name}": getattr(self.layout, name).cpu().numpy()
+                       for name in LAYOUT_TENSORS})
+        meta = {
+            "max_depth": self.max_depth,
+            "layout_static": {name: getattr(self.layout, name)
+                              for name in LAYOUT_STATIC},
+            "build": dataclasses.asdict(self.config.build),
+            "search": dataclasses.asdict(self.config.search),
+            "sax_segments": self.config.sax_segments,
+        }
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez_compressed(f, __meta__=json.dumps(meta), **arrays)
+        os.replace(tmp, path)
+
     @classmethod
     def load(cls, path: str, device: str | torch.device | None = None
              ) -> "HerculesIndex":
-        """Read the ``.npz`` that the reference's ``HerculesIndex.save``
-        writes."""
+        """Read the ``.npz`` that :meth:`save`, or the reference's
+        ``HerculesIndex.save``, writes."""
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"]))
             arrays = {key: z[key] for key in z.files if key != "__meta__"}

@@ -6,7 +6,8 @@
 Builds the index on the CUDA device (``--device cpu`` for the host), answers
 a query workload, reports per-query latency, pruning ratios and the
 access-path distribution, and with ``--verify`` checks the answers against
-the exact dense scan.
+the exact dense scan. ``--save PATH`` writes the built index to one
+``.npz`` (``HerculesIndex.save``, the reference's file format).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--save", default="")
     ap.add_argument("--verify", action="store_true")
     args = ap.parse_args(argv)
 
@@ -54,6 +56,9 @@ def main(argv=None):
     st = idx.stats()
     print(f"index built in {t_build:.2f}s: {st['num_leaves']} leaves, "
           f"depth {st['max_depth']}, max leaf {st['max_leaf']}")
+    if args.save:
+        idx.save(args.save)
+        print(f"saved to {args.save}")
 
     queries = make_query_workload(data, args.queries, args.difficulty,
                                   seed=args.seed + 1)

@@ -19,8 +19,8 @@ other. An index directory holds
       enc.npy         format v3, lossy codecs only: codec-encoded rows,
                       position-aligned with lrd.npy, (n_pad, row_bytes)
                       uint8 (see ``storage/codecs.py``).
-      journal/        append segments of the store (a later slice writes
-                      them; the readers here already skip or verify them).
+      journal/        append segments of the store (``storage/store.py``):
+                      raw rows in append order and their iSAX codes.
 
 Versions 1 and 2 load unchanged (no codec section: ``raw``). Loading
 validates the manifest and, with ``verify=True``, re-checksums every file,
@@ -110,6 +110,10 @@ def array_path(manifest: dict, name: str) -> str:
     return entry.get("path", name)
 
 
+def generation_of(manifest: dict) -> int:
+    return int(manifest.get("generation", 0))
+
+
 def generation_name(name: str, generation: int) -> str:
     """``lrd.npy`` at generation 3 -> ``lrd-00003.npy`` (generation 0 keeps
     the plain name)."""
@@ -136,6 +140,23 @@ def has_base(manifest: dict) -> bool:
     """Whether the directory holds a committed base index (an empty store
     has only a manifest and a journal)."""
     return bool(manifest.get("files"))
+
+
+def segment_file_names(seg_id: int) -> tuple[str, str]:
+    """(lrd, lsd) file names of journal segment ``seg_id``, relative to the
+    index directory."""
+    return (f"{JOURNAL_DIR}/seg-{seg_id:05d}.lrd.npy",
+            f"{JOURNAL_DIR}/seg-{seg_id:05d}.lsd.npy")
+
+
+def partition_of(manifest: dict) -> dict:
+    """The shard-plan section, normalized. Manifests written before shard
+    plans were recorded have none; plans then derive on open
+    (``repro_torch.storage.partition.shard_plan``)."""
+    p = manifest.get("partition") or {}
+    return {"version": int(p.get("version", 0)),
+            "balanced_by": str(p.get("balanced_by", "rows")),
+            "plans": dict(p.get("plans", {}))}
 
 
 def _load_npz(path: str, rel: str) -> dict[str, np.ndarray]:
@@ -460,7 +481,8 @@ def open_saved(path: str, manifest: dict) -> SavedIndex:
 
 def open_index(path: str, verify: bool = True) -> SavedIndex:
     """Open an index directory without materializing the big files (the
-    committed base index; journal rows are the store's, a later slice)."""
+    committed base index; journal rows are served by the store,
+    ``storage/store.py``)."""
     manifest = read_manifest(path)
     if verify:
         verify_files(path, manifest)

@@ -1,6 +1,7 @@
 """The port on a CUDA card: each hand-written kernel against its plain
 version, the pinned-slot reader, and the card's build and answers
-(in memory and out of core) and RWKV-6 logits and tokens against the CPU's.
+(in memory, out of core, and through the store: append, query with the
+journal merged, compact) and RWKV-6 logits and tokens against the CPU's.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -48,7 +49,7 @@ from repro_torch.kernels import wkv6 as kwkv
 from repro_torch.models import get_model
 from repro_torch.models import rwkv6 as TR
 from repro_torch.serve import ServeConfig, ServeEngine
-from repro_torch.storage import build_index_to_disk
+from repro_torch.storage import Hercules, build_index_to_disk
 from repro_torch.storage import codecs as TC
 
 pytestmark = pytest.mark.gpu
@@ -431,6 +432,56 @@ def test_ooc_local_equals_cpu(cuda, tmp_path, codec):
             want = local.knn(q, k=k)
             assert torch.equal(g.dists.cpu(), want.dists)
             assert torch.equal(g.ids.cpu().long(), want.ids.long())
+
+
+@pytest.mark.parametrize("codec", ["raw", "bf16"])
+def test_store_on_the_card_equals_cpu(cuda, tmp_path, codec):
+    """A store appended to, queried and compacted on the card: with rows
+    pending, every backend's merged answer equals the CPU store's bit for
+    bit (positions -1 on journal rows), and every array of the compacted
+    generation equals the one the CPU writes from the same rows; after
+    compaction the answers are unchanged but for the journal rows'
+    positions."""
+    data_a, data_b = walks(11, 3000, 64), walks(12, 900, 64)
+    rng = np.random.default_rng(13)
+    src = np.concatenate([data_a, data_b])[rng.integers(0, 3900, 12)]
+    q = (src + rng.standard_normal((12, 64)) * np.sqrt(0.05)).astype(np.float32)
+    icfg = IndexConfig(build=TT.BuildConfig(leaf_capacity=64),
+                       search=SearchConfig(chunk=128, scan_block=256))
+    stores = {}
+    for dev in ("cuda", "cpu"):
+        hx = Hercules.create(str(tmp_path / dev), icfg, data=data_a, chunk_size=700,
+                             codec=codec, device=dev)
+        hx.append(data_b[:500], chunk_size=128)
+        hx.append(torch.from_numpy(data_b[500:]).to(dev))    # a tensor on the device
+        stores[dev] = hx
+    try:
+        pending = {}
+        for name in ("local", "scan", "ooc-scan", "ooc-local"):
+            for k in (1, 5):
+                g, c = (stores[d].query(q, k, backend=name, memory_budget_mb=0.25)
+                        for d in ("cuda", "cpu"))
+                for f in ("dists", "positions", "ids"):
+                    assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), (name, k, f)
+                assert (g.ids >= 3000).any() and (g.positions[g.ids >= 3000] == -1).all()
+                pending[(name, k)] = g
+        for hx in stores.values():
+            hx.compact(chunk_size=1000)
+        g_saved, c_saved = stores["cuda"].saved, stores["cpu"].saved
+        for f in g_saved.tree._fields:
+            assert torch.equal(getattr(g_saved.tree, f), getattr(c_saved.tree, f)), f
+        for name in ("lrd", "lsd") + (("enc",) if codec != "raw" else ()):
+            np.testing.assert_array_equal(g_saved._mapped(name), c_saved._mapped(name))
+        for f, arr in g_saved.small.items():
+            np.testing.assert_array_equal(arr, c_saved.small[f], err_msg=f)
+        for (name, k), before in pending.items():
+            after = stores["cuda"].query(q, k, backend=name, memory_budget_mb=0.25)
+            assert torch.equal(after.dists, before.dists), (name, k)
+            assert torch.equal(after.ids, before.ids), (name, k)
+            assert (after.positions >= 0).all()
+    finally:
+        for hx in stores.values():
+            hx.close()
 
 
 def wkv_inputs(seed, b, t, h, dk, dv, cuda, dtype=torch.float32):
