@@ -29,7 +29,25 @@ Phases (any failure ends the run with a non-zero exit):
    and bf16 streams, k=1 and k=10, with the threaded reader (and once with
    the synchronous one); every answer is held against phase 4's in-memory
    answers bit for bit, and every kernel of the path must have launched;
-6. the store's mutation path on that store: two journal segments of 1/32
+6. the wave plans and kNN serving on phase 4's ``local`` backend and phase
+   5's store engines: ``knn(..., wave=True)`` at k=1 and k=10 over the 100
+   queries (bucket 128) on ``local`` (``wave_knn``: exactly one
+   ``lb_sax_matrix`` launch a call, over the whole LSD sidecar; its time
+   and peak memory beside phase 4's), ``ooc-scan`` (raw and bf16;
+   ``wave_rows_shared`` = rows streamed x 127) and ``ooc-local`` (raw and
+   bf16, the threaded reader, raw k=10 also the synchronous one; its
+   streaming, reader and sharing counters beside the same engine's batch
+   call), every answer held bit for bit to phase 4's (ids as sets per
+   row); then 256 requests of phase 4's queries, two at k=1 for one at
+   k=10, one of them of the wrong length, through ``KnnServeEngine`` (32
+   slots, wave plans, difficulty packing, a queue bound of 64 that raises
+   ``QueueFull``, each retried after a wave) over ``local`` and over the
+   bf16 ``ooc-local`` engine, each wave call timed with its size (full or
+   padded), at least one full k=10 wave of 32 over ``ooc-local``; every
+   answer equal to the query's per-query answer, exactly one ``KnnFailure``
+   (the wrong length), its wave-mates answered; every kNN kernel must
+   launch in this phase;
+7. the store's mutation path on that store: two journal segments of 1/32
    of the base each (2 x 131,072 rows at the full size) appended in chunks
    of 65,536 and 8,192 rows, each append invalidating the store's cached
    engine; 100 queries (phase 4's first 72, 28 made from the journal rows)
@@ -45,26 +63,27 @@ Phases (any failure ends the run with a non-zero exit):
    kNN kernels must launch in this phase. The index directory (two
    generations side by side at the compaction's peak, about 14 GB at the
    full size) is removed after this phase, also on failure;
-7. kernels vs plain versions at the main path's shapes, with CUDA-event
+8. kernels vs plain versions at the main path's shapes, with CUDA-event
    times for kernel, plain version and library call (each launched from a
    host loop, as the engine launches them), and the bound;
    ``ed_matrix`` and ``decode_bf16_ed_matrix`` (on a strided view of a real
    encoded block, with its error against a float64 evaluation) at 4096 and
-   131,072 rows, ``lb_sax_matrix`` at Q=1 over the whole LSD sidecar
-   and at Q=128 over one 131,072-row LSD block, and ``ed_min`` over the
-   whole collection (the k=1 scan) and over one 131,072-row block (the
-   out-of-core k=1 fold), also timed on the device alone by a CUDA graph
+   131,072 rows, ``lb_sax_matrix`` at Q=1, Q=128 (a wave call's shape) and
+   Q=32 (a serving wave's) over the whole LSD sidecar and at Q=128 over one
+   131,072-row LSD block,
+   and ``ed_min`` over the whole collection (the k=1 scan) and over one
+   131,072-row block (the out-of-core k=1 fold), also timed on the device alone by a CUDA graph
    (``device_ms``), with their launches per run at each shape; ``ed_min``
    and ``ed_matrix`` held bit for bit to the exact fma references at both
    of ``ed_min``'s shapes and at 131,072 rows, and the ED witness;
-8. the card's answers against the CPU's on a small input (the CPU path is
+9. the card's answers against the CPU's on a small input (the CPU path is
    the one the test suite holds against the JAX reference);
-9. ``wkv6`` against its plain version and, bit for bit, against the exact
+10. ``wkv6`` against its plain version and, bit for bit, against the exact
    fma reference ``wkv6_fma_ref``: the LM path's prefill shape (B=4,
    T=512, H=64, K=V=64) with a nonzero state, the decode shape (T=1), bf16
    r/k/v as served and float32, the extreme decays and the
    overflow-then-reset case; host-loop and CUDA-graph times at both shapes;
-10. LM serving at full width: ``rwkv6-7b`` (all 32 layers, d_model 4096,
+11. LM serving at full width: ``rwkv6-7b`` (all 32 layers, d_model 4096,
    bf16 compute, float32 parameters) with random weights from a seed, 8
    requests of 512-token prompts through ``ServeEngine`` in two waves of 4,
    32 new tokens each; ``wkv6`` must launch 32 x (1 + 31) x 2 = 2,048
@@ -72,7 +91,7 @@ Phases (any failure ends the run with a non-zero exit):
    the engine's tokens; served again in float32 with the same weights, each
    first token equals the request's solo run wherever its top-2 margin
    exceeds twice the float32 logit tolerance;
-11. the card against the CPU at full width and 2 layers in float32: a
+12. the card against the CPU at full width and 2 layers in float32: a
    64-token prefill and 4 decode steps, logits within 1e-4, equal tokens.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
@@ -526,7 +545,7 @@ def phase_disk(data, queries, local, answers, root: str, profile: bool = False):
     with the bf16 codec), served by ``ooc-scan`` and ``ooc-local`` engines
     of the store under a 256 MiB budget. Returns (the path's kernel
     launches, blocks of its encoded, LSD and LRD files staged on the card
-    for phase 7, summary, the open store for phase 6).
+    for phase 8, summary, the open store for phases 6 and 7).
 
     At the full size phase 1 of ``ooc-local`` seeds 1,624 of the 1,635
     leaves, and the rest must go through phase 3 (the LSD sidecar and the
@@ -657,6 +676,285 @@ def phase_disk(data, queries, local, answers, root: str, profile: bool = False):
     lsd = torch.from_numpy(np.array(saved._mapped("lsd")[:rows])).cuda()
     lrd = torch.from_numpy(np.array(saved._mapped("lrd")[:rows])).cuda()
     return launches, (enc, lsd, lrd), summary, hx
+
+
+# the serving runs: 255 valid requests and 1 of the wrong length over each
+# engine. Over local the bad request rides in a mixed wave and, once that
+# wave fails, its mates are served again one by one, each padded to the 32
+# slots. Over ooc-local such a call streams most of the bf16 store (~2 s at
+# 2**22), so there the bad request and 3 valid mates carry an explicit
+# l_max override equal to the configured value (the same SearchConfig,
+# another signature): their sub-wave is 4 requests, its fallback 4 calls
+SERVE_REQUESTS = 256
+SERVE_SLOTS = 32
+SERVE_MAX_QUEUE = 64
+SERVE_OV = {"l_max": 80}
+
+
+def phase_waves(queries, local, answers, hx, summary):
+    """The wave plans and kNN serving at phase 4's scale, on phase 4's
+    ``local`` backend and phase 5's store engines (before the journal):
+    ``knn(..., wave=True)`` on ``local`` (one ``lb_sax_matrix`` launch a
+    call), ``ooc-scan`` and ``ooc-local`` (raw and bf16, k=1 and 10), each
+    held bit for bit to phase 4's per-query answers (ids as sets per row);
+    ``ooc-local``'s streaming and sharing counters beside the same engine's
+    batch call; then 256 mixed k=1/k=10 requests through ``KnnServeEngine``
+    (32 slots, wave plans, difficulty packing, a queue bound that rejects
+    and is retried) over ``local`` and over the bf16 ``ooc-local`` engine,
+    each wave call timed with its size: every answer equal to the query's
+    per-query answer, exactly one failure (the request of the wrong
+    length), its wave-mates answered, and over ``ooc-local`` at least one
+    full k=10 wave of 32. Returns the phase's summary, its kernel launches
+    by call under ``launches``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.serve import KnnFailure, KnnServeConfig, KnnServeEngine, QueueFull
+
+    nq = len(queries)
+    bucket = 1 << (nq - 1).bit_length()
+    need_sax = local.index.layout.num_series >= FULL_SERIES
+    out: dict = {"ms_per_query": {}, "calls": {}, "launches": {}, "serving": {}}
+    want = {key: (res.dists.cpu(), torch.sort(res.ids.long(), 1).values.cpu())
+            for key, res in answers.items()}
+    reset_counters()
+
+    def hold(res, key, tag):
+        rows = res.dists.shape[0]
+        check(torch.equal(res.dists.cpu(), want[key][0][:rows]),
+              f"{tag}: dists are not bit-identical to phase 4's {key[0]} answers")
+        check(torch.equal(torch.sort(res.ids.long(), 1).values.cpu(), want[key][1][:rows]),
+              f"{tag}: ids differ from phase 4's {key[0]} answers")
+
+    def call(eng, k, wave, q=queries):
+        before, t_before = read_counters(), eng.telemetry().ooc
+        t0 = time.perf_counter()
+        res = eng.knn(q, k=k, wave=wave)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / len(q)
+        after = read_counters()
+        t = None if t_before is None else ooc_delta(eng.telemetry().ooc, t_before)
+        return res, ms, t, {key: after[key] - before[key] for key in after}
+
+    # local: wave_knn, one LB_SAX launch over the (bucket, m) PAA matrix
+    eng = QueryEngine(local)
+    torch.cuda.reset_peak_memory_stats()
+    lb_wave = 0
+    for k in (1, 10):
+        res, ms, _, launched = call(eng, k, True)
+        hold(res, ("local", k), f"local wave k={k}")
+        check(launched["lb_sax_matrix"] == 1,
+              f"local wave k={k}: lb_sax_matrix launched {launched['lb_sax_matrix']} times")
+        lb_wave += launched["lb_sax_matrix"]
+        was = summary["ms_per_query"][f"local_k{k}"]
+        out["ms_per_query"][f"local k={k}"] = ms
+        log(f"[waves] local k={k} wave: {ms:.3f} ms/query against {was:.3f} per query in "
+            f"phase 4 ({ms - was:+.3f}); launches {launched}")
+    out["local_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["lb_sax_wave_launches"] = lb_wave
+    log(f"[waves] local wave: peak device memory {out['local_peak_gib']:.2f} GiB "
+        f"(phase 4: {summary['peak_gib']:.2f}); answers bit for bit phase 4's")
+
+    def counters(t) -> dict:
+        return {f: getattr(t, f) for f in (
+            "rows_streamed", "bytes_streamed", "blocks", "runs_deduped",
+            "runs_skipped_bsf", "wave_rows_shared", "read_seconds",
+            "read_wait_seconds", "overlap_blocks", "codec_fallbacks")}
+
+    def ooc_line(t) -> str:
+        return (f"rows_streamed {t.rows_streamed}, bytes_streamed {t.bytes_streamed}, "
+                f"blocks {t.blocks}, runs_deduped {t.runs_deduped}, runs_skipped_bsf "
+                f"{t.runs_skipped_bsf}, wave_rows_shared {t.wave_rows_shared}, "
+                f"read_seconds {t.read_seconds:.3f}, read_wait_seconds "
+                f"{t.read_wait_seconds:.3f}, overlap_blocks {t.overlap_blocks}, "
+                f"codec_fallbacks {t.codec_fallbacks}")
+
+    # ooc-scan: the batch stream, every row shared by the whole bucket
+    for codec in ("raw", "bf16"):
+        for k in (1, 10):
+            eng = hx.engine("ooc-scan", search=SearchConfig(codec=codec, prefetch="thread"),
+                            memory_budget_mb=DISK_BUDGET_MB)
+            res, ms, t, launched = call(eng, k, True)
+            tag = f"ooc-scan {codec} k={k} wave"
+            hold(res, ("scan", k), tag)
+            check(t.wave_calls == 1 and t.wave_rows_shared == t.rows_streamed * (bucket - 1),
+                  f"{tag}: wave_calls {t.wave_calls}, wave_rows_shared "
+                  f"{t.wave_rows_shared} != rows_streamed {t.rows_streamed} x {bucket - 1}")
+            out["ms_per_query"][tag] = ms
+            out["launches"][tag] = launched
+            log(f"[waves] {tag}: {ms:.3f} ms/query; {ooc_line(t)}; launches {launched}")
+
+    # ooc-local: the demand-scheduled wave (raw) and the codec wave (bf16),
+    # each beside the same engine's batch call
+    for codec, k, prefetch in (("raw", 1, "thread"), ("raw", 10, "thread"),
+                               ("bf16", 1, "thread"), ("bf16", 10, "thread"),
+                               ("raw", 10, "sync")):
+        eng = hx.engine("ooc-local", search=SearchConfig(codec=codec, prefetch=prefetch),
+                        memory_budget_mb=DISK_BUDGET_MB)
+        for wave in (False, True):
+            res, ms, t, launched = call(eng, k, wave)
+            tag = f"ooc-local {codec} k={k} {prefetch} {'wave' if wave else 'batch'}"
+            hold(res, ("local", k), tag)
+            if wave:
+                check(t.wave_calls == 1, f"{tag}: wave_calls {t.wave_calls}")
+            if need_sax or t.sax_rows_read:
+                check(launched["lb_sax_matrix"] > 0, f"{tag}: lb_sax_matrix never launched")
+            out["ms_per_query"][tag] = ms
+            out["launches"][tag] = launched
+            out["calls"][tag] = counters(t)
+            log(f"[waves] {tag}: {ms:.3f} ms/query; {ooc_line(t)}; launches {launched}")
+
+    class Timed:
+        """The engine as ``KnnServeEngine`` sees it, each wave call timed
+        with its real rows, k, outcome and streaming counters."""
+
+        def __init__(self, eng):
+            self.eng, self.calls, self.step = eng, [], 0
+
+        def knn(self, q, k, valid_rows, **kw):
+            t_ooc, t0, ok = self.eng.telemetry().ooc, time.perf_counter(), False
+            try:
+                res = self.eng.knn(q, k=k, valid_rows=valid_rows, **kw)
+                torch.cuda.synchronize()
+                ok = True
+                return res
+            finally:
+                self.calls.append(dict(
+                    step=self.step, k=k, rows=valid_rows, ok=ok,
+                    s=time.perf_counter() - t0,
+                    ooc=None if t_ooc is None else ooc_delta(self.eng.telemetry().ooc, t_ooc)))
+
+        def estimate_difficulty(self, q):
+            return self.eng.estimate_difficulty(q)
+
+        def telemetry(self):
+            return self.eng.telemetry()
+
+    # serving: mixed k=1/k=10 traffic in waves of 32, the bad request (and
+    # over ooc-local its override group) submitted halfway
+    host_q = queries.cpu().numpy()
+    for name, eng, ov in (("local", QueryEngine(local), {}),
+                          ("ooc-local bf16", hx.engine(
+                              "ooc-local", search=SearchConfig(codec="bf16", prefetch="thread"),
+                              memory_budget_mb=DISK_BUDGET_MB), SERVE_OV)):
+        # k=1 twice as often as k=10, so a k=1 sub-wave's peers outnumber the
+        # slots and difficulty packing scores them
+        mates = 3 if ov else 0
+        n_plain = SERVE_REQUESTS - 1 - mates
+        plain = [(i % nq, 10 if i % 3 == 2 else 1, {}) for i in range(n_plain)]
+        group = [(i % nq, 1, ov) for i in range(n_plain, n_plain + mates)]
+        reqs = plain[:n_plain // 2] + group + [(None, 1, ov)] + plain[n_plain // 2:]
+        timed_eng = Timed(eng)
+        serve = KnnServeEngine(timed_eng, KnnServeConfig(
+            batch_slots=SERVE_SLOTS, wave=True, pack="difficulty",
+            max_queue=SERVE_MAX_QUEUE))
+
+        step_s: dict = {}
+
+        def step():
+            timed_eng.step += 1
+            t_step = time.perf_counter()
+            served = serve.step()
+            step_s[timed_eng.step] = time.perf_counter() - t_step
+            return served
+
+        before = read_counters()
+        rids, retries = [], 0
+        t0 = time.perf_counter()
+        for qi, k, o in reqs:
+            q = host_q[qi] if qi is not None else host_q[0][:-1]   # the wrong length
+            while True:
+                try:
+                    rids.append(serve.submit(q, k=k, **o))
+                    break
+                except QueueFull:       # backpressure: serve a wave, then retry
+                    retries += 1
+                    step()
+        while step():
+            pass
+        got = serve.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = read_counters()
+        out["launches"][f"serving {name}"] = {key: after[key] - before[key] for key in after}
+        sv = serve.telemetry().serving
+        check(set(got) == set(rids) and serve.pending() == 0,
+              f"serving {name}: {len(got)} of {len(rids)} requests completed")
+        check(retries > 0 and sv["rejected"] == retries,
+              f"serving {name}: QueueFull raised {sv['rejected']} times, retried {retries}")
+        bad = [got[r] for r, (qi, _, _) in zip(rids, reqs) if qi is None]
+        check(len(bad) == 1 and isinstance(bad[0], KnnFailure)
+              and bad[0].error.startswith("ValueError"),
+              f"serving {name}: the request of the wrong length gave {bad!r}")
+        failed = [got[r] for r, (qi, _, _) in zip(rids, reqs)
+                  if qi is not None and isinstance(got[r], KnnFailure)]
+        check(not failed and sv["failed"] == 1,
+              f"serving {name}: {len(failed)} valid requests failed, e.g. "
+              f"{failed[:1]}")
+        for rid, (qi, k, _) in zip(rids, reqs):
+            if qi is None:
+                continue
+            a = got[rid]
+            check(np.array_equal(a.dists, want[("local", k)][0][qi].numpy()),
+                  f"serving {name}: request {rid} (query {qi}, k={k}): dists differ")
+            check(np.array_equal(np.sort(a.ids), want[("local", k)][1][qi].numpy()),
+                  f"serving {name}: request {rid} (query {qi}, k={k}): ids differ")
+        # the waves: a step of one call served its wave; the step of more is
+        # the bad request's wave, which failed before it reached the engine
+        # (its series do not stack), its members then served one by one
+        calls = timed_eng.calls
+        by_step: dict = {}
+        for c in calls:
+            by_step.setdefault(c["step"], []).append(c)
+        waves = [cs[0] for cs in by_step.values() if len(cs) == 1]
+        fb = [(st, cs) for st, cs in by_step.items() if len(cs) > 1]
+        check(len(fb) == 1 and sum(not c["ok"] for c in fb[0][1]) == 1
+              and all(c["ok"] and c["rows"] == 1 for c in fb[0][1] if c["ok"])
+              and all(c["ok"] for c in waves),
+              f"serving {name}: wave calls by step {by_step}")
+        comp: dict = {}
+        for c in waves:
+            key = f"k={c['k']} {'full' if c['rows'] == SERVE_SLOTS else 'padded'}"
+            e = comp.setdefault(key, {"waves": 0, "requests": 0, "seconds": 0.0})
+            e["waves"] += 1
+            e["requests"] += c["rows"]
+            e["seconds"] += c["s"]
+        fallback = {"wave_rows": len(fb[0][1]), "calls": len(fb[0][1]),
+                    "seconds": step_s[fb[0][0]]}
+        if ov:
+            check(comp.get("k=10 full", {}).get("waves", 0) >= 1,
+                  f"serving {name}: no full k=10 wave of {SERVE_SLOTS} was served: {comp}")
+        out["serving"][name] = {"seconds": dt, "requests_per_s": len(rids) / dt,
+                                "waves": sv["waves"], "wave_calls": len(calls),
+                                "by_composition": comp, "fallback": fallback,
+                                "rejected": sv["rejected"],
+                                "difficulty_mean": sv["difficulty_mean"],
+                                "difficulty_scored": sv["difficulty_scored"]}
+        for c in calls:
+            if c["ooc"] is not None:
+                log(f"[waves] serving {name}, step {c['step']}: k={c['k']}, {c['rows']} of "
+                    f"{SERVE_SLOTS} rows real, {'served' if c['ok'] else 'failed'} in "
+                    f"{c['s']:.3f}s; {ooc_line(c['ooc'])}")
+        if calls[0]["ooc"] is not None:
+            out["serving"][name]["ooc"] = [dict(k=c["k"], rows=c["rows"], s=c["s"],
+                                                **counters(c["ooc"])) for c in calls]
+        log(f"[waves] serving {name}: {len(rids)} requests in {dt:.2f}s "
+            f"({len(rids) / dt:.1f} requests/s), {sv['waves']} waves served in "
+            f"{len(calls)} wave calls; by composition (waves, requests, s): "
+            + "; ".join(f"{key} {e['waves']}, {e['requests']}, {e['seconds']:.2f}"
+                        for key, e in sorted(comp.items()))
+            + f"; the bad request's wave of {fallback['wave_rows']} failed and was served "
+            f"again in {fallback['calls']} single-member calls (the bad one failing), "
+            f"{fallback['seconds']:.2f}s in all; QueueFull {sv['rejected']} times (retried), 1 failure (the wrong length), "
+            f"difficulty_mean {sv['difficulty_mean']:.6f} over {sv['difficulty_scored']} "
+            f"scored; every answer equals the query's per-query answer; launches "
+            f"{out['launches'][f'serving {name}']}")
+    launches = read_counters()
+    log(f"[waves] kernel launches during the wave phase: {launches}")
+    for kname, count in launches.items():
+        check(count > 0, f"wave phase: {kname} was never launched")
+    return out
 
 
 def journal_rows(num: int) -> int:
@@ -1027,7 +1325,10 @@ def _bound(r: dict) -> None:
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernel_timing(data, queries, local, launches):
+def phase_kernel_timing(data, queries, local, launches, wave_launches):
+    """The kernels line's rows at the main path's shapes, and apart the
+    ``ed_matrix`` shape of an out-of-core block; ``wave_launches`` maps a wave's query rows to
+    the ``lb_sax_matrix`` launches of phase 6 at that shape."""
     import torch
     from repro_torch.core import summaries as S
     from repro_torch.kernels import ed as ked, lb_sax as klb, ref
@@ -1058,6 +1359,29 @@ def phase_kernel_timing(data, queries, local, launches):
         device_ms=device_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=200),
         plain_ms=time_ms(lambda: ref.lb_sax_matrix_ref(q_paa, lsd, n), reps=5),
         library_ms=None, bytes=nbytes, ops=ops))
+
+    # lb_sax_matrix: a wave's phase 3, the wave's PAA matrix against the
+    # whole LSD sidecar in one launch a wave call: the query bucket's (phase
+    # 6's local wave calls) and the 32 slots' (its local serving run)
+    for q_rows, tag in ((bucket, "wave"), (SERVE_SLOTS, "serving wave")):
+        q_paa = S.paa(qb[:q_rows], m)
+        got = klb.lb_sax_matrix(q_paa, lsd, n)
+        want = ref.lb_sax_matrix_ref(q_paa, lsd, n)
+        err = assert_close(got, want, "float32", f"lb_sax {tag} shape")
+        check(torch.equal(got, want), f"lb_sax {tag} shape: bits differ")
+        del got, want
+        rows.append(dict(
+            name="lb_sax_matrix", route="cuda",
+            source="src/repro_torch/kernels/csrc/lb_sax.cu",
+            replaces="src/repro/kernels/lb_sax.py:69",
+            shape=[q_rows, lsd.shape[0], m], launches=wave_launches[q_rows],
+            max_abs_err=err,
+            ms=time_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=10, warmup=2),
+            device_ms=device_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=10),
+            plain_ms=time_ms(lambda: ref.lb_sax_matrix_ref(q_paa, lsd, n), reps=2),
+            library_ms=None,
+            bytes=q_paa.numel() * 4 + lsd.numel() + q_rows * lsd.shape[0] * 4,
+            ops=q_rows * lsd.shape[0] * (6 * m + 1)))
 
     # ed_min: the k=1 scan, the query bucket against the whole collection
     dmin, amin = ked.ed_min(qb, data, valid_n=num)
@@ -1304,7 +1628,7 @@ def phase_wkv6_kernel():
     """``wkv6`` against its plain version (within the tolerances) and
     against the exact fma reference (bit for bit) on the card at the LM
     path's prefill and decode shapes, with bf16 r, k, v as served and in
-    float32 (phase 11's path), and on the extreme decays and the
+    float32 (phase 12's path), and on the extreme decays and the
     overflow-then-reset case; times at both shapes by the host loop and by a
     CUDA graph. Returns the kernel's row for the ``{"kernels": ...}`` line
     (its launches are filled in by the serving phase), with ``by_shape``:
@@ -1618,44 +1942,62 @@ def main(argv=None) -> int:
         disk_launches, blocks, summary["disk"], hx = timed(
             "disk", phase_disk, data, queries, local, answers, root, args.profile)
         try:
+            summary["waves"] = timed("waves", phase_waves, queries, local, answers, hx,
+                                     summary)
             summary["store"] = timed("store", phase_store, hx, data, queries, summary)
         finally:
             hx.close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
         log(f"[disk] removed {root}")
-    rows, shapes = timed("kernel_timing", phase_kernel_timing, data, queries, local, launches)
+    # lb_sax_matrix over the whole LSD sidecar in phase 6: once a local wave
+    # call for the query bucket, once a local serving wave call (the bad
+    # request's members served alone included) for the 32 slots
+    n_pad, qn = local.index.layout.lsd.shape[0], len(queries)
+    bucket = 1 << (qn - 1).bit_length()
+    wl = summary["waves"]["launches"]
+    wave_launches = {bucket: summary["waves"]["lb_sax_wave_launches"],
+                     SERVE_SLOTS: wl["serving local"]["lb_sax_matrix"]}
+    rows, shapes = timed("kernel_timing", phase_kernel_timing, data, queries, local, launches,
+                         wave_launches)
     disk_row, ooc_min_row, disk_shapes = timed("disk_kernels", phase_disk_kernels, queries,
                                                blocks, disk_launches)
     rows += [disk_row, ooc_min_row]
     shapes += disk_shapes
     del blocks
-    # launches per run of the redesigned kernels at each timed shape:
-    # ed_matrix runs on 4096-row blocks only (the k>1 scan, ooc-scan raw
-    # k>1); decode_bf16_ed_matrix on 131,072-row blocks in ooc-scan and on
-    # leaves padded to max_leaf rows in ooc-local; lb_sax_matrix once a
-    # query over the whole LSD sidecar in local (phase 4) and on 131,072-row
-    # LSD blocks (the last of each call partial) in ooc-local
-    calls = summary["disk"]["calls"]
+    # launches per run of the kernels at each timed shape (query rows,
+    # series rows) in phases 4-6: ed_matrix runs on 4096-row blocks only
+    # (the k>1 scan, ooc-scan raw k>1); decode_bf16_ed_matrix on 131,072-row
+    # blocks in ooc-scan and on leaves padded to max_leaf rows in ooc-local;
+    # lb_sax_matrix once a query over the whole LSD sidecar in local (phase
+    # 4), once a wave call over it (phase 6, the bucket's rows or the 32
+    # slots), and on 131,072-row LSD blocks (the last of each call partial)
+    # in ooc-local. The ooc-local serving run's launches (32-row waves over
+    # LSD blocks and leaves) fall in no timed shape and are counted apart
+    calls = [(t, c["launches"]) for t, c in summary["disk"]["calls"].items()]
+    calls += [(t, c) for t, c in wl.items() if not t.startswith("serving")]
+
+    def count(kname, prefix):
+        return sum(c[kname] for t, c in calls if t.startswith(prefix))
+
     per_run = {
-        ("lb_sax_matrix", local.index.layout.lsd.shape[0]): launches["lb_sax_matrix"],
-        ("lb_sax_matrix", 1 << 17): sum(
-            c["launches"]["lb_sax_matrix"] for t, c in calls.items()
-            if t.startswith("ooc-local")),
-        ("ed_matrix", 4096): launches["ed_matrix"] + sum(
-            c["launches"]["ed_matrix"] for c in calls.values()),
-        ("ed_matrix", 1 << 17): 0,
-        ("ed_min", data.shape[0]): launches["ed_min"],
-        ("ed_min", 1 << 17): disk_launches["ed_min"],
-        ("decode_bf16_ed_matrix", 1 << 17): sum(
-            c["launches"]["decode_bf16_ed_matrix"] for t, c in calls.items()
-            if t.startswith("ooc-scan")),
-        ("decode_bf16_ed_matrix", 4096): sum(
-            c["launches"]["decode_bf16_ed_matrix"] for t, c in calls.items()
-            if t.startswith("ooc-local")),
+        ("lb_sax_matrix", 1, n_pad): launches["lb_sax_matrix"],
+        ("lb_sax_matrix", bucket, n_pad): wave_launches[bucket],
+        ("lb_sax_matrix", SERVE_SLOTS, n_pad): wave_launches[SERVE_SLOTS],
+        ("lb_sax_matrix", bucket, 1 << 17): count("lb_sax_matrix", "ooc-local"),
+        ("ed_matrix", bucket, 4096): launches["ed_matrix"] + count("ed_matrix", ""),
+        ("ed_matrix", bucket, 1 << 17): 0,
+        ("ed_min", bucket, data.shape[0]): launches["ed_min"],
+        ("ed_min", bucket, 1 << 17): count("ed_min", "ooc-scan"),
+        ("decode_bf16_ed_matrix", bucket, 1 << 17): count("decode_bf16_ed_matrix",
+                                                          "ooc-scan"),
+        ("decode_bf16_ed_matrix", bucket, 4096): count("decode_bf16_ed_matrix",
+                                                       "ooc-local"),
     }
+    log(f"[timing] launches of the ooc-local serving run (32-row waves, in no timed shape): "
+        f"{wl['serving ooc-local bf16']}")
     for r in rows + shapes:
-        key = (r["name"], r["shape"][1])
+        key = (r["name"], r["shape"][0], r["shape"][1])
         if key in per_run and "launches_per_run" not in r:
             r["launches_per_run"] = per_run[key]
     summary["kernel_shapes"] = [
@@ -1688,7 +2030,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_lm_cpu_agreement()
     summary["lm"]["phases_s"] = time.perf_counter() - t_lm
-    log(f"[lm] the LM phases (9-11) took {summary['lm']['phases_s']:.1f}s")
+    log(f"[lm] the LM phases (10-12) took {summary['lm']['phases_s']:.1f}s")
     log(f"[main] summary {json.dumps(summary)}")
     phase_s["lm"] = round(summary["lm"]["phases_s"], 1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")

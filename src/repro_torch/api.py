@@ -27,9 +27,19 @@ In-memory serving goes through :func:`make_backend` + :class:`QueryEngine`
 (``local`` | ``scan`` | ``scan-mxu``); the disk backends through
 :meth:`Hercules.engine` or :func:`make_disk_backend` (``local`` | ``scan``
 | ``ooc-scan`` | ``ooc-local``). Every servable name lives in the one
-:data:`BACKENDS` registry. The wave plans, kNN serving, the sharded and
-``dist-ooc`` backends and ``iter_scheduled_chunks`` are not ported yet, so
-their names are not here.
+:data:`BACKENDS` registry. ``engine.knn(queries, wave=True)`` answers a
+batch through the backend's wave plan (:func:`wave_knn` for ``local``),
+bit for bit the per-query answers, and :class:`KnnServeEngine` serves a
+stream of submitted queries in waves over any engine::
+
+    serve = api.KnnServeEngine(engine, api.KnnServeConfig(batch_slots=32,
+                                                          wave=True))
+    rid = serve.submit(query)          # QueueFull past max_queue
+    answers = serve.drain()            # {rid: KnnAnswer | KnnFailure}
+    serve.telemetry().serving          # waves, rejected, failed, ...
+
+The sharded and ``dist-ooc`` backends are not ported yet, so their names
+are not here.
 """
 from repro_torch.core.engine import (  # noqa: F401
     BACKENDS, BackendSpec, EngineConfig, LatencyTelemetry, LocalBackend,
@@ -41,13 +51,16 @@ from repro_torch.core.engine import (  # noqa: F401
 from repro_torch.kernels.compat import KERNEL_MODES, resolve_kernel_mode  # noqa: F401
 from repro_torch.core.index import HerculesIndex, IndexConfig  # noqa: F401
 from repro_torch.core.search import (  # noqa: F401
-    KnnResult, SearchConfig, brute_force_knn, pscan_knn,
+    KnnResult, SearchConfig, brute_force_knn, pscan_knn, wave_knn,
 )
 from repro_torch.core.tree import BuildConfig, build_tree_chunked  # noqa: F401
 from repro_torch.data.pipeline import (  # noqa: F401
     ArrayChunkSource, AsyncChunkReader, ChunkSource, NpyChunkSource,
     PREFETCH_MODES, SyncChunkReader, iter_device_chunks, iter_host_chunks,
-    make_chunk_reader,
+    iter_scheduled_chunks, make_chunk_reader,
+)
+from repro_torch.serve.engine import (  # noqa: F401
+    KnnAnswer, KnnFailure, KnnServeConfig, KnnServeEngine, QueueFull,
 )
 from repro_torch.storage import (  # noqa: F401
     BALANCE_WARN_RATIO, CODEC_CHOICES, Codec, FORMAT_VERSION, Hercules,

@@ -18,11 +18,14 @@ Port of the in-memory half of ``repro/core/engine.py``:
   sound bounds, with every reported distance re-checked on float32 rows;
 * :class:`QueryEngine` -- a serving session over one backend: pads each
   query batch to a bucket size, keeps an LRU cache of plans keyed by the
-  whole ``SearchConfig``, and reports telemetry. A plan here is a bound
-  callable (PyTorch runs eagerly), so building one costs next to nothing.
+  whole ``SearchConfig`` and the wave flag, and reports telemetry. A plan
+  here is a bound callable (PyTorch runs eagerly), so building one costs
+  next to nothing. ``knn(..., wave=True)`` answers the batch through the
+  backend's wave plan (:meth:`BackendBase.make_wave_plan`): shared
+  descent, a shared BSF matrix and once-per-wave fetches, bit for bit the
+  per-query answers.
 
-The sharded backends, the wave-fused plans and ``dist-ooc`` come with later
-slices.
+The sharded backends and ``dist-ooc`` come with later slices.
 """
 from __future__ import annotations
 
@@ -41,11 +44,12 @@ from repro_torch.core import summaries as S
 from repro_torch.core.index import HerculesIndex, IndexConfig
 from repro_torch.core.search import (INF, KnnResult, SearchConfig, _merge_topk,
                                      _query_seg_stats, _stable_smallest,
-                                     exact_knn, pscan_knn,
-                                     validate_runtime_config)
+                                     _wave_leaf_lbs, exact_knn, pscan_knn,
+                                     validate_runtime_config, wave_knn)
 from repro_torch.core.tree import HerculesTree, route_to_leaf
 from repro_torch.data.pipeline import (READ_STAT_KEYS, ArrayChunkSource,
-                                       iter_device_chunks, make_chunk_reader)
+                                       iter_device_chunks, iter_scheduled_chunks,
+                                       make_chunk_reader)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.compat import resolve_kernel_mode
@@ -68,6 +72,9 @@ class SearchBackend(Protocol):
 
     def make_plan(self, cfg: SearchConfig, bucket: int
                   ) -> Callable[[torch.Tensor], KnnResult]: ...
+
+    def make_wave_plan(self, cfg: SearchConfig, bucket: int
+                       ) -> Callable[[torch.Tensor], KnnResult]: ...
 
     def knn(self, queries, k: int | None = None, **overrides: Any) -> KnnResult: ...
 
@@ -111,6 +118,14 @@ class BackendBase:
         """A callable answering a (bucket, n) float32 query batch under
         ``cfg``."""
         return self._bind(cfg)
+
+    def make_wave_plan(self, cfg: SearchConfig, bucket: int):
+        """Plan for a *wave*: a batch answered with fused scheduling
+        (shared descent, BSF matrix and fetches). The default is the
+        regular plan: a dense scan is already fused across the batch, so
+        for it the wave path is the batch path. Backends with per-query
+        work to share override this."""
+        return self.make_plan(cfg, bucket)
 
     def knn(self, queries, k: int | None = None, **overrides: Any) -> KnnResult:
         """Direct (non-engine) call; serving code goes through
@@ -176,6 +191,13 @@ class LocalBackend(BackendBase):
     def _bind(self, cfg):
         idx = self.index
         return lambda q: exact_knn(idx.tree, idx.layout, q, cfg, idx.max_depth)
+
+    def make_wave_plan(self, cfg: SearchConfig, bucket: int):
+        idx = self.index
+        return lambda q: wave_knn(idx.tree, idx.layout, q, cfg, idx.max_depth)
+
+    def estimate_difficulty(self, queries: torch.Tensor) -> np.ndarray:
+        return _difficulty_from_leaf_lbs(_wave_leaf_lbs(queries, self.index.layout))
 
     def stats(self) -> dict:
         return self.index.stats()
@@ -441,6 +463,20 @@ def _codec_exact_topk(rows: torch.Tensor, p: torch.Tensor,
     return vals, torch.gather(p, 1, idx)
 
 
+def _difficulty_from_leaf_lbs(lbs: torch.Tensor) -> np.ndarray:
+    """Per-query cost score in [0, 1] from the leaf-bound landscape (Q, L):
+    the fraction of alive leaves whose LB_EAPCA is within 2x of the query's
+    best bound. A flat landscape (many near-best leaves) predicts weak
+    pruning and an expensive query, a spiky one a cheap query. This is the
+    signal ``KnnServeEngine``'s ``pack="difficulty"`` packs waves by."""
+    lbs = lbs.cpu().numpy()
+    finite = np.isfinite(lbs)
+    n_alive = np.maximum(finite.sum(axis=1), 1)
+    best = np.where(finite, lbs, np.inf).min(axis=1)
+    near = finite & (lbs <= 2.0 * best[:, None] + 1e-12)
+    return near.sum(axis=1).astype(np.float32) / n_alive
+
+
 def _alive_runs(alive: np.ndarray, base: int) -> list[tuple[int, int]]:
     """Contiguous True runs of a row-survival mask as absolute
     (start, count) pairs: the sub-extents the SAX filter could not prune."""
@@ -475,7 +511,7 @@ class _OutOfCoreBase(BackendBase):
                    "bytes_streamed": 0, "sax_rows_read": 0,
                    "read_seconds": 0.0, "read_wait_seconds": 0.0,
                    "overlap_blocks": 0,
-                   # wave-fused serving (a later slice of the port)
+                   # wave-fused serving (make_wave_plan)
                    "wave_calls": 0, "wave_rows_shared": 0,
                    "runs_deduped": 0, "runs_skipped_bsf": 0,
                    # codec streaming (format v3): candidate rows re-checked
@@ -703,6 +739,26 @@ class OutOfCoreScanBackend(_OutOfCoreBase):
         self._t["calls"] += 1
         return self._fill_result(d, p, self._ids_of(p), path=3, accessed=num)
 
+    def make_wave_plan(self, cfg: SearchConfig, bucket: int):
+        """The streamed scan already reads each block once for the whole
+        batch, so the wave path is the batch path, plus telemetry of the
+        sharing: every streamed row serves all wave members but is fetched
+        once. Codec streams share the same way (the encoded block feeds the
+        whole wave's bound carries)."""
+        plan = self._bind(cfg)
+
+        def run(q, valid_rows=None):
+            before = self._t["rows_streamed"]
+            res = plan(q, valid_rows=valid_rows) if getattr(plan, "valid_aware", False) \
+                else plan(q)
+            self._t["wave_calls"] += 1
+            self._t["wave_rows_shared"] += ((self._t["rows_streamed"] - before)
+                                            * max(int(q.shape[0]) - 1, 0))
+            return res
+
+        run.valid_aware = True
+        return run
+
 
 class OutOfCoreLocalBackend(_OutOfCoreBase):
     """Index-pruned out-of-core answering: touch only the leaves, and the
@@ -758,6 +814,27 @@ class OutOfCoreLocalBackend(_OutOfCoreBase):
             return run
         return lambda q: self._stream_knn(q, cfg)
 
+    def make_wave_plan(self, cfg: SearchConfig, bucket: int):
+        """The raw stream runs the demand-scheduled :meth:`_stream_wave_knn`.
+        A codec stream already folds whole blocks into the batch's bound
+        carries, so every encoded fetch is shared across the wave; the raw
+        path's per-run demand order and BSF-based run skipping do not apply
+        to the carry form, and the wave plan is the batch plan."""
+        codec = self._active_codec(cfg)
+        if codec is None:
+            return lambda q: self._stream_wave_knn(q, cfg)
+
+        def run(q, valid_rows=None):
+            res = self._stream_codec_knn(q, cfg, codec, valid_rows=valid_rows)
+            self._t["wave_calls"] += 1
+            return res
+
+        run.valid_aware = True
+        return run
+
+    def estimate_difficulty(self, queries: torch.Tensor) -> np.ndarray:
+        return _difficulty_from_leaf_lbs(self._leaf_lbs(queries))
+
     def _pad_bucket(self, count: int, cap: int) -> int:
         """Pad a piece to a power of two between max_leaf and the streaming
         cap, so tiny pieces don't pay a full-budget zero-fill and copy."""
@@ -792,17 +869,22 @@ class OutOfCoreLocalBackend(_OutOfCoreBase):
         return [(s, min(max_rows, hi - s))
                 for lo, hi in intervals for s in range(lo, hi, max_rows)]
 
+    def _visit_sets(self, q: torch.Tensor, cfg: SearchConfig, lbs: torch.Tensor):
+        """Each query's home leaf rank (Q,) and its ``l_max`` best leaves by
+        LB_EAPCA (Q, l_max), on the host: the in-memory pipeline's visit
+        set."""
+        home = route_to_leaf(self._tree, q, self.saved.max_depth).cpu().numpy()
+        l_max = min(cfg.l_max, self.saved.num_leaves)
+        _, best = _stable_smallest(lbs, l_max)
+        return self._leaf_rank[home], best.cpu().numpy()
+
     def _seed(self, q: torch.Tensor, cfg: SearchConfig, lbs: torch.Tensor):
         """Phase 1 (Alg. 11): the union over the batch of each query's home
-        leaf and its ``l_max`` best leaves by LB_EAPCA -- the in-memory
-        pipeline's visit set. Returns (sorted leaf ranks, (start, count,
-        pad_to) extents of the non-empty ones)."""
-        home = route_to_leaf(self._tree, q, self.saved.max_depth).cpu().numpy()
-        home_ranks = self._leaf_rank[home]
-        l_max = min(cfg.l_max, self.saved.num_leaves)
-        _, best = _stable_smallest(lbs, l_max)           # (Q, l_max)
+        leaf and its ``l_max`` best leaves by LB_EAPCA. Returns (sorted leaf
+        ranks, (start, count, pad_to) extents of the non-empty ones)."""
+        home_ranks, best = self._visit_sets(q, cfg, lbs)
         seeded = sorted(set(int(r) for r in home_ranks if r >= 0)
-                        | set(int(r) for r in best.cpu().numpy().ravel()))
+                        | set(int(r) for r in best.ravel()))
         seeds = [(int(self._leaf_start[r]), int(self._leaf_count[r]),
                   self.saved.max_leaf) for r in seeded
                  if int(self._leaf_count[r]) > 0]
@@ -823,7 +905,8 @@ class OutOfCoreLocalBackend(_OutOfCoreBase):
                     cfg: SearchConfig, kmode: str):
         """Phase 3 for one piece: LB_SAX over its streamed codes (the
         ``lb_sax_matrix`` kernel on the CUDA path), maxed with the rows'
-        leaf bounds. Returns ((Q,) alive counts, (cnt,) host alive mask)."""
+        leaf bounds. Returns ((Q,) alive counts, (cnt,) host alive mask,
+        the (Q, pad_to) bounds)."""
         pad_to = self._pad_bucket(cnt, self.stream_rows())
         codes = lsd_reader.stage(lsd_reader.get())
         ranks = np.zeros((pad_to,), np.int64)
@@ -837,7 +920,7 @@ class OutOfCoreLocalBackend(_OutOfCoreBase):
         live = ((lb_row * slack < bsf[:, None])
                 & (torch.arange(pad_to, device=dev) < cnt)[None, :])
         return (live.sum(dim=1, dtype=_I32),
-                live.any(dim=0).cpu().numpy()[:cnt])
+                live.any(dim=0).cpu().numpy()[:cnt], lb_row)
 
     def _finish(self, d, p, cfg, rows_before, alive_counts, eapca_pr,
                 visited: int) -> KnnResult:
@@ -899,7 +982,7 @@ class OutOfCoreLocalBackend(_OutOfCoreBase):
                 for start, cnt in pieces:
                     lsd_reader.submit(start, cnt, self._pad_bucket(cnt, R))
                 for start, cnt in pieces:
-                    alive_q, alive = self._sax_filter(
+                    alive_q, alive, _ = self._sax_filter(
                         lsd_reader, q_paa, lbs, kth(carries), start, cnt, cfg, kmode)
                     alive_counts = alive_counts + alive_q
                     carries = fold_all(carries,
@@ -926,6 +1009,131 @@ class OutOfCoreLocalBackend(_OutOfCoreBase):
             lambda c: c[0][:, k - 1])
         self._t["calls"] += 1
         return self._finish(d, p, cfg, rows_before, alive_counts, eapca_pr, visited)
+
+    def _stream_wave_knn(self, q: torch.Tensor, cfg: SearchConfig) -> KnnResult:
+        """Wave-fused out-of-core answering: the :meth:`_stream_knn` phases
+        with the wave's disk schedule made explicit.
+
+        Where :meth:`_stream_knn` walks leaf runs in file order, this merges
+        every member's alive runs, counts each run's **demand** (how many
+        members still need it), fetches each run once in descending demand
+        order, and refines all members per fetched block through the shared
+        BSF matrix, so a popular leaf is read once for the whole wave and
+        its rows tighten every member's bound before less popular runs are
+        submitted. The submissions go through
+        :func:`~repro_torch.data.pipeline.iter_scheduled_chunks`, whose
+        ``still_needed`` re-check runs against the current BSF matrix right
+        before each submit: a run no member can still use is dropped
+        without touching the disk (``runs_skipped_bsf``). A member leaves a
+        run's demand only when the run's lower bound for it (the minimum
+        over the run's rows) cannot beat its BSF_k, the per-query path's
+        no-false-dismissal test, so distances stay bit-identical to it.
+        ``runs_deduped`` counts the fetches saved against independent
+        queries, ``wave_rows_shared`` the rows one fetch served to more than
+        one member.
+        """
+        k = cfg.k
+        qn = q.shape[0]
+        dev = q.device
+        max_leaf = self.saved.max_leaf
+        R = self.stream_rows()
+        rows_before = self._t["rows_streamed"]
+        slack_f = np.float32(1.0 - cfg.lb_slack)
+        d, p = self._empty_carries(qn, k)
+        counts, starts = self._leaf_count, self._leaf_start
+        lrd_reader = self._reader(self._lrd(), R, self.saved.series_len,
+                                  np.float32, cfg)
+        lsd_reader = None
+        try:
+            # -- phase 1: the members' seed sets, fetched once for their
+            # union, the most demanded leaves first so the shared BSF
+            # matrix tightens fastest
+            lbs = self._leaf_lbs(q)                      # (W, L)
+            home_ranks, best = self._visit_sets(q, cfg, lbs)
+            demand: collections.Counter = collections.Counter()
+            for w in range(qn):
+                for r in {int(home_ranks[w])} | {int(r) for r in best[w]}:
+                    if r >= 0 and counts[r] > 0:
+                        demand[r] += 1
+            seeded = sorted(demand)
+            self._t["runs_deduped"] += sum(demand[r] - 1 for r in seeded)
+            self._t["wave_rows_shared"] += sum(int(counts[r]) * (demand[r] - 1)
+                                               for r in seeded)
+            seed_rows = sum(int(counts[r]) for r in seeded)
+            extents = [(int(starts[r]), int(counts[r]))
+                       for r in sorted(seeded, key=lambda r: (-demand[r], r))]
+            for start, cnt in extents:
+                lrd_reader.submit(start, cnt, max_leaf)
+            for start, cnt in extents:
+                rows = lrd_reader.stage(lrd_reader.get())
+                d, p = _ooc_refine_block(rows, start, cnt, q, d, p, k=k)
+                self._count(cnt)
+
+            # -- phase 2: leaf-level pruning, per member
+            bsf = d[:, k - 1]
+            needed, eapca_pr = self._prune_leaves(lbs, bsf, seeded, cfg)
+
+            # -- phase 3: the merged alive-run list, with each member's lower
+            # bound for each run (the minimum over its rows)
+            pieces = self._runs(needed, R)
+            alive_counts = torch.full((qn,), seed_rows, dtype=_I32, device=dev)
+            runs: list[tuple[int, int, np.ndarray]] = []
+            if not cfg.use_sax:
+                lbs_np = lbs.cpu().numpy()
+                for start, cnt in pieces:
+                    ranks = np.unique(self._srank[start:start + cnt])
+                    runs.append((start, cnt, lbs_np[:, ranks].min(axis=1)))
+            elif pieces:
+                m_sax = int(self._lsd().shape[1])
+                q_paa = S.paa(q, m_sax)
+                kmode = resolve_kernel_mode(cfg.kernel_mode, self._device)
+                lsd_reader = self._reader(self._lsd(), R, m_sax, np.uint8, cfg)
+                for start, cnt in pieces:
+                    lsd_reader.submit(start, cnt, self._pad_bucket(cnt, R))
+                for start, cnt in pieces:
+                    alive_q, alive, lb_row = self._sax_filter(
+                        lsd_reader, q_paa, lbs, bsf, start, cnt, cfg, kmode)
+                    alive_counts = alive_counts + alive_q
+                    lb_np = lb_row[:, :cnt].cpu().numpy()
+                    for s0, c0 in _alive_runs(alive, start):
+                        lo = s0 - start
+                        runs.append((s0, c0, lb_np[:, lo:lo + c0].min(axis=1)))
+
+            # -- phase 4: each run fetched once, the most demanded first,
+            # its demand re-checked against the current BSF right before
+            # its submit
+            kth = [d[:, k - 1].cpu().numpy()]
+
+            def run_demand(run_lb: np.ndarray) -> int:
+                return int((run_lb * slack_f < kth[0]).sum())
+
+            runs.sort(key=lambda r: (-run_demand(r[2]), r[0]))
+
+            def still_needed(tag) -> bool:
+                _, c0, run_lb = tag
+                dm = run_demand(run_lb)
+                if dm == 0:
+                    self._t["runs_skipped_bsf"] += 1
+                    return False
+                self._t["runs_deduped"] += dm - 1
+                self._t["wave_rows_shared"] += c0 * (dm - 1)
+                return True
+
+            reqs = [((s0, c0, run_lb), s0, c0, self._pad_bucket(c0, R))
+                    for s0, c0, run_lb in runs]
+            for (s0, c0, _), rows in iter_scheduled_chunks(
+                    lrd_reader, reqs, still_needed=still_needed):
+                d, p = _ooc_refine_block(rows, s0, c0, q, d, p, k=k)
+                self._count(c0)
+                kth[0] = d[:, k - 1].cpu().numpy()
+            self._t["calls"] += 1
+            self._t["wave_calls"] += 1
+        finally:
+            self._reap_reader(lrd_reader)
+            if lsd_reader is not None:
+                self._reap_reader(lsd_reader)
+        return self._finish(d, p, cfg, rows_before, alive_counts, eapca_pr,
+                            len(seeded) + int(needed.sum()))
 
     def _stream_codec_knn(self, q: torch.Tensor, cfg: SearchConfig, codec,
                           valid_rows: int | None = None) -> KnnResult:
@@ -1006,8 +1214,11 @@ class OocTelemetry:
     resident backends). ``bytes_streamed`` counts the bytes actually
     fetched (the encoded width under a codec, plus the float32 re-check
     rows); ``codec_refine_rows``/``codec_fallbacks`` account the exactness
-    machinery of encoded streams. The wave counters stay 0 until the
-    wave-fused plans are ported."""
+    machinery of encoded streams. ``wave_calls`` counts the backend's wave
+    plan calls; ``runs_deduped`` (fetches saved against independent
+    queries), ``runs_skipped_bsf`` (runs dropped before their read) and
+    ``wave_rows_shared`` (rows one fetch served to more than one member)
+    account the sharing."""
     calls: int = 0
     blocks: int = 0
     rows_streamed: int = 0
@@ -1026,12 +1237,15 @@ class OocTelemetry:
 
 @dataclasses.dataclass
 class Telemetry:
-    """The serving-telemetry report. ``ooc`` is filled for the out-of-core
-    backends; ``dist`` stays ``None`` until the sharded backends are
-    ported."""
+    """The serving-telemetry report. ``wave_calls`` counts the engine's
+    ``knn(..., wave=True)`` calls; ``ooc`` is filled for the out-of-core
+    backends; ``serving`` by
+    :meth:`repro_torch.serve.engine.KnnServeEngine.telemetry`; ``dist``
+    stays ``None`` until the sharded backends are ported."""
     backend: str = ""
     calls: int = 0
     queries: int = 0
+    wave_calls: int = 0
     plan_cache: PlanCacheTelemetry = dataclasses.field(
         default_factory=PlanCacheTelemetry)
     latency: LatencyTelemetry = dataclasses.field(default_factory=LatencyTelemetry)
@@ -1039,6 +1253,7 @@ class Telemetry:
     pruning: PruningTelemetry = dataclasses.field(default_factory=PruningTelemetry)
     ooc: OocTelemetry | None = None
     dist: None = None
+    serving: dict | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1063,7 +1278,7 @@ class QueryEngine:
         self.config = config or EngineConfig()
         self._plans: collections.OrderedDict = collections.OrderedDict()
         self._t = {
-            "calls": 0, "queries": 0,
+            "calls": 0, "queries": 0, "wave_calls": 0,
             "hits": 0, "misses": 0, "evictions": 0,
             "invalidations": 0,
             "compile_s": 0.0, "exec_s": 0.0, "last_exec_s": 0.0,
@@ -1086,12 +1301,18 @@ class QueryEngine:
         return max(1, 1 << (qn - 1).bit_length())
 
     def knn(self, queries, k: int | None = None, valid_rows: int | None = None,
-            **overrides: Any) -> KnnResult:
+            wave: bool = False, **overrides: Any) -> KnnResult:
         """Answer a batch of queries (Q, n) or one query (n,).
 
         ``valid_rows``: when the caller already padded the batch, the number
         of leading real queries -- results are sliced and telemetry counted
-        on those only."""
+        on those only.
+
+        ``wave=True`` answers the batch through the backend's wave plan
+        (shared descent, BSF matrix and once-per-wave fetches); distances
+        are bit-identical to ``wave=False``, which runs the per-query
+        pipeline over the batch. Backends with nothing per query to share
+        (the dense scans) serve both through the same plan."""
         dev = self.backend.device
         q = torch.as_tensor(queries, dtype=_F32).to(dev)
         if q.ndim == 1:
@@ -1111,12 +1332,13 @@ class QueryEngine:
 
         # plan_signature folds backend identity the SearchConfig cannot see
         # into the key (none of the ported backends has one yet)
-        key = (cfg, bucket, q.shape[1], str(q.dtype),
+        key = (cfg, bucket, q.shape[1], str(q.dtype), wave,
                getattr(self.backend, "plan_signature", None))
         plan = self._plans.get(key)
         if plan is None:
             t0 = time.perf_counter()
-            plan = self.backend.make_plan(cfg, bucket)
+            maker = self.backend.make_wave_plan if wave else self.backend.make_plan
+            plan = maker(cfg, bucket)
             self._t["compile_s"] += time.perf_counter() - t0
             self._t["misses"] += 1
             self._plans[key] = plan
@@ -1140,12 +1362,26 @@ class QueryEngine:
         self._t["last_exec_s"] = dt
         self._t["calls"] += 1
         self._t["queries"] += qn
+        if wave:
+            self._t["wave_calls"] += 1
 
         if bucket != qn:
             res = KnnResult(*[a[:qn] for a in res])
         if self.config.collect_result_stats:
             self._record(res)
         return res
+
+    def estimate_difficulty(self, queries) -> np.ndarray | None:
+        """Cheap per-query cost scores in [0, 1] (higher: likely slower)
+        from the backend's resident pruning tables, the signal of
+        difficulty-aware wave packing. ``None`` when the backend has no
+        leaf-bound landscape (a dense scan costs the same for every
+        query)."""
+        fn = getattr(self.backend, "estimate_difficulty", None)
+        if fn is None:
+            return None
+        q = torch.as_tensor(queries, dtype=_F32).to(self.backend.device)
+        return fn(q[None, :] if q.ndim == 1 else q)
 
     def _record(self, res: KnnResult) -> None:
         path = res.path.cpu().numpy()
@@ -1170,6 +1406,7 @@ class QueryEngine:
             backend=self.backend.name,
             calls=t["calls"],
             queries=t["queries"],
+            wave_calls=t["wave_calls"],
             plan_cache=PlanCacheTelemetry(
                 hits=t["hits"], misses=t["misses"],
                 evictions=t["evictions"], size=len(self._plans),
@@ -1188,6 +1425,9 @@ class QueryEngine:
                 eapca_mean=t["eapca_pr_sum"] / n_stat,
                 sax_mean=t["sax_pr_sum"] / n_stat),
             ooc=ooc)
+
+    def stats(self) -> dict:
+        return self.backend.stats()
 
     def describe(self) -> dict:
         return {

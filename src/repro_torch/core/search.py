@@ -2,7 +2,9 @@
 
 Port of ``repro/core/search.py`` (see it for the phase map). Queries run one
 at a time, as the reference's ``lax.map`` runs them; the access-path choice
-is a real branch on the host. Every answer is exact.
+is a real branch on the host. :func:`wave_knn` answers a batch with its
+phases 1-3 fused across the batch, bit for bit the per-query answers.
+Every answer is exact.
 
 Where the reference folds a sequence of candidate blocks into a running
 top-k one block at a time (``_merge_topk`` inside ``lax.scan``), this module
@@ -372,11 +374,10 @@ def _ids(layout: HerculesLayout, p: torch.Tensor) -> torch.Tensor:
     return torch.where(p >= 0, layout.perm[safe], -1)
 
 
-def exact_knn(tree: HerculesTree, layout: HerculesLayout, queries: torch.Tensor,
-              cfg: SearchConfig, max_depth: int) -> KnnResult:
-    """Exact kNN for a workload of queries (Q, n). See the module docstring."""
-    dev = queries.device
-    rows = [_query_one(q, tree, layout, cfg, max_depth) for q in queries]
+def _collect(layout: HerculesLayout, rows, cfg: SearchConfig,
+             dev: torch.device) -> KnnResult:
+    """A KnnResult from per-query (dists, positions, path, eapca_pr, sax_pr,
+    accessed, visited_leaves) tuples."""
     if rows:
         d, p, path, e_pr, s_pr, acc, vis = zip(*rows)
         dists, pos = torch.stack(d), torch.stack(p)
@@ -394,6 +395,133 @@ def exact_knn(tree: HerculesTree, layout: HerculesLayout, queries: torch.Tensor,
         path=torch.tensor(path, dtype=_I32, device=dev),
         eapca_pr=eapca_pr, sax_pr=sax_pr, accessed=accessed.to(_I32),
         visited_leaves=torch.tensor(vis, dtype=_I32, device=dev))
+
+
+def exact_knn(tree: HerculesTree, layout: HerculesLayout, queries: torch.Tensor,
+              cfg: SearchConfig, max_depth: int) -> KnnResult:
+    """Exact kNN for a workload of queries (Q, n). See the module docstring."""
+    rows = [_query_one(q, tree, layout, cfg, max_depth) for q in queries]
+    return _collect(layout, rows, cfg, queries.device)
+
+
+# ---------------------------------------------------------------------------
+# Wave-fused multi-query search
+# ---------------------------------------------------------------------------
+
+def _wave_leaf_lbs(queries: torch.Tensor, layout: HerculesLayout) -> torch.Tensor:
+    """(W, L) squared LB_EAPCA of every wave member to every leaf (+inf for
+    empty leaves): :func:`_leaf_lbs` batched. Every step is elementwise or
+    a fixed-order sum along the last axis, so each row equals the
+    single-query bounds bit for bit, and so does every pruning decision
+    made from them."""
+    qp, qp2 = S.prefix_sums(queries)                         # (W, n+1)
+    qm, qs = _query_seg_stats(qp, qp2, layout.leaf_endpoints)  # (W, L, M)
+    lb = LB.lb_eapca_node(qm, qs, layout.leaf_synopsis, layout.leaf_seg_lens)
+    return torch.where(layout.leaf_count[None, :] <= 0, INF, lb)
+
+
+def _wave_row_dists(queries: torch.Tensor, rows: torch.Tensor,
+                    index: torch.Tensor) -> torch.Tensor:
+    """Difference-form squared ED of member ``w`` to ``rows[index[w]]``,
+    index (W, R): the arithmetic of :func:`_row_dists`, in blocks of whole
+    members of at most ``_ROW_CHUNK_ELEMS`` elements. Returns (W, R)."""
+    w_all, r = index.shape
+    step = max(1, _ROW_CHUNK_ELEMS // max(1, r * queries.shape[-1]))
+    out = torch.empty((w_all, r), dtype=_F32, device=queries.device)
+    for lo in range(0, w_all, step):
+        idx = index[lo:lo + step]
+        blk = rows[idx.reshape(-1)].reshape(*idx.shape, rows.shape[1])
+        out[lo:lo + idx.shape[0]] = LB.squared_ed(blk, queries[lo:lo + step, None, :])
+    return out
+
+
+def wave_knn(tree: HerculesTree, layout: HerculesLayout, queries: torch.Tensor,
+             cfg: SearchConfig, max_depth: int) -> KnnResult:
+    """Exact kNN for a *wave* of queries (W, n) with fused scheduling.
+
+    Where :func:`exact_knn` runs :func:`_query_one` query by query (each
+    query its own leaf visits and its own LB_SAX launch), this shares the
+    work that has the same structure across the wave:
+
+    * one tree descent for all members (``route_to_leaf`` is batched);
+    * phase 1 level by level over the wave: one (W, max_leaf) gather of
+      LRD rows per visit level, folded into a shared (W, k) BSF matrix
+      through :func:`_merge_topk`;
+    * one ``lb_sax_matrix`` launch over the (W, m) PAA matrix for phase 3.
+
+    Per member the merge sequence (the home leaf, then the ``l_max`` best
+    leaves in rank order) and all distance arithmetic are those of
+    :func:`_query_one`: folding the levels one at a time keeps the k
+    smallest entries by (distance, first merge position), as the stable
+    top-k over all visited rows does (see the module docstring), and a
+    leaf visited twice is dropped by the duplicate test or cannot re-enter.
+    So answers are bit-identical to the per-query path. Phase 4 is the
+    per-member :func:`_finish_one`, a real branch per member.
+
+    Memory: phase 3 holds (W, N_pad) bound matrices where the per-query
+    path holds (N_pad,) vectors; that is the wave's footprint, and why
+    serving waves are bounded by ``batch_slots``. ``unroll_visits`` has no
+    effect here, as in the per-query path.
+    """
+    if queries.shape[0] == 0:
+        return exact_knn(tree, layout, queries, cfg, max_depth)
+    dev = queries.device
+    W = queries.shape[0]
+    k = cfg.k
+    n = layout.series_len
+    l_max = min(cfg.l_max, layout.num_leaves)
+    slack = torch.tensor(1.0 - cfg.lb_slack, dtype=_F32, device=dev)
+
+    # ---- Phase 1: approximate search, wave-fused (Alg. 11) ----------------
+    leaf_lb = _wave_leaf_lbs(queries, layout)                # (W, L)
+    home = layout.leaf_rank[route_to_leaf(tree, queries, max_depth).long()]
+    _, best = _stable_smallest(leaf_lb, l_max)               # (W, l_max)
+    visit = torch.cat([home.long()[:, None], best], dim=1)   # (W, l_max + 1)
+    d_top = torch.full((W, k), INF, device=dev)              # the shared BSF matrix
+    p_top = torch.full((W, k), -1, dtype=_I32, device=dev)
+    offs = torch.arange(layout.max_leaf, device=dev)
+    for level in range(visit.shape[1]):
+        ranks = visit[:, level]
+        pos = layout.leaf_start[ranks].long()[:, None] + offs[None, :]
+        d = _wave_row_dists(queries, layout.lrd, pos)        # (W, max_leaf)
+        live = offs[None, :] < layout.leaf_count[ranks].long()[:, None]
+        d_top, p_top = _merge_topk(d_top, p_top, torch.where(live, d, INF),
+                                   pos.to(_I32), k)
+    accessed = layout.leaf_count[visit].long().sum(dim=1)
+    bsf = d_top[:, k - 1]
+
+    # ---- Phase 2: candidate leaves (Alg. 12), the whole wave at once -------
+    cand_leaf = leaf_lb * slack < bsf[:, None]               # (W, L)
+    n_alive = (layout.leaf_count > 0).sum().clamp_min(1).to(_F32)
+    eapca_pr = 1.0 - cand_leaf.sum(dim=1).to(_F32) / n_alive
+
+    # ---- Phase 3: candidate series (Alg. 13), one kernel launch ------------
+    srank = layout.series_leaf_rank.long()
+    leaf_lb_pad = torch.cat([leaf_lb, leaf_lb.new_full((W, 1), INF)], dim=1)
+    cand_lb = leaf_lb_pad[:, srank]                          # (W, N_pad)
+    if cfg.use_sax:
+        q_paa = S.paa(queries, layout.lsd.shape[1])          # (W, m)
+        kmode = resolve_kernel_mode(cfg.kernel_mode, dev)
+        if kmode == "ref":
+            for i in range(W):
+                torch.maximum(LB.lb_sax(q_paa[i], layout.lsd, n), cand_lb[i],
+                              out=cand_lb[i])
+        else:
+            torch.maximum(kops.lb_sax(q_paa, layout.lsd, n, mode=kmode), cand_lb,
+                          out=cand_lb)
+    leaf_mask_pad = torch.cat([cand_leaf, cand_leaf.new_zeros((W, 1))], dim=1)
+    cand_lb.masked_fill_(~leaf_mask_pad[:, srank], INF)
+    n_cand = (cand_lb * slack < bsf[:, None]).sum(dim=1).to(_F32)
+    sax_pr = 1.0 - S.div_rn(n_cand, layout.num_series)
+
+    # ---- Phase 4: per-member adaptive refinement (Alg. 10/14) --------------
+    rows = []
+    for i in range(W):
+        d_f, p_f, path, acc_f = _finish_one(
+            queries[i], layout, cfg, d_top[i], p_top[i], accessed[i],
+            cand_lb[i], eapca_pr[i], sax_pr[i])
+        rows.append((d_f, p_f, path, eapca_pr[i], sax_pr[i], acc_f, l_max + 1))
+    return _collect(layout, rows, cfg, dev)
 
 
 # ---------------------------------------------------------------------------

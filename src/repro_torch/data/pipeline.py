@@ -1,7 +1,7 @@
 """Chunk sources and chunk readers for the out-of-core build and serving.
 
-Port of ``repro/data/pipeline.py`` (the chunk half; the LLM loader and the
-wave path's demand scheduler come with later slices).
+Port of ``repro/data/pipeline.py`` (the chunk half and the wave path's
+demand scheduler; the LLM loader comes with a later slice).
 
 * A :class:`ChunkSource` carves one series collection into fixed-size row
   chunks with stable boundaries, re-iterable any number of times (the
@@ -15,6 +15,9 @@ wave path's demand scheduler come with later slices).
   modes give bit-identical answers.
 * :func:`iter_device_chunks` streams a whole source to the device with two
   chunks in flight; :func:`iter_host_chunks` streams it on the host.
+* :func:`iter_scheduled_chunks` fetches an ordered list of extents through
+  one reader, each once, and asks the caller right before each submit
+  whether the extent is still needed (the wave path's run scheduler).
 
 Staging. ``reader.stage(view)`` always returns a tensor that owns its
 memory: a reader slot is refilled by the reader thread and a memory map
@@ -496,3 +499,45 @@ def iter_device_chunks(source: ChunkSource,
     finally:
         reader.close()
         _tally(telemetry, reader.stats)
+
+
+def iter_scheduled_chunks(reader, requests, still_needed=None,
+                          lookahead: int = 2
+                          ) -> Iterator[tuple[object, torch.Tensor]]:
+    """Demand-scheduled fetches over one shared chunk reader (the wave
+    path's multi-consumer submissions).
+
+    ``requests`` is an ordered iterable of ``(tag, start, count, pad_to)``,
+    typically leaf runs sorted by how many consumers still need them. Each
+    surviving request is fetched once and yielded as ``(tag,
+    staged_rows)`` on the reader's device; the tag tells the caller which
+    run (and so which consumers) the block belongs to.
+
+    ``still_needed(tag) -> bool`` is consulted immediately before each
+    ``submit()``, as late as possible, so a run whose every interested
+    consumer has since been satisfied is dropped without touching the
+    disk. ``lookahead`` bounds the submissions in flight: large enough that
+    reads overlap the consumer's compute (the reader's slot pair), small
+    enough that the drop decision still sees a recent bound.
+    """
+    if lookahead < 1:
+        raise ValueError(f"lookahead={lookahead}; expected >= 1")
+    pending: collections.deque = collections.deque()
+    it = iter(requests)
+
+    def pump() -> None:
+        while len(pending) < lookahead:
+            for tag, start, count, pad_to in it:
+                if still_needed is None or still_needed(tag):
+                    reader.submit(start, count, pad_to)
+                    pending.append(tag)
+                    break
+            else:
+                return
+
+    pump()
+    while pending:
+        tag = pending.popleft()
+        rows = reader.stage(reader.get())
+        pump()                       # refill the window before the consumer
+        yield tag, rows              # computes, so the next read overlaps

@@ -1,7 +1,8 @@
 """The port on a CUDA card: each hand-written kernel against its plain
 version, the pinned-slot reader, and the card's build and answers
-(in memory, out of core, and through the store: append, query with the
-journal merged, compact) and RWKV-6 logits and tokens against the CPU's.
+(in memory, out of core, through the wave plans, and through the store:
+append, query with the journal merged, compact) and RWKV-6 logits and
+tokens against the CPU's.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -432,6 +433,52 @@ def test_ooc_local_equals_cpu(cuda, tmp_path, codec):
             want = local.knn(q, k=k)
             assert torch.equal(g.dists.cpu(), want.dists)
             assert torch.equal(g.ids.cpu().long(), want.ids.long())
+
+
+@pytest.mark.parametrize("codec", ["raw", "bf16"])
+def test_wave_on_the_card_equals_cpu(cuda, tmp_path, codec):
+    """The wave plans on the card answer as on the CPU and as the card's
+    per-query path. ``local`` (``wave_knn``): every KnnResult field equal to
+    the CPU's, one ``lb_sax_matrix`` launch a call, distances bit for bit
+    the per-query path's. ``ooc-local``: under the raw stream every field
+    equal to the CPU's (the bf16 bounds come from the fused kernel, so the
+    answer is held there, and the sharing counters with it), distances bit
+    for bit the card's per-query answers, ids equal as sets per row."""
+    data = walks(11, 4096, 64)
+    rng = np.random.default_rng(12)
+    q = (data[rng.integers(0, 4096, 12)]
+         + rng.standard_normal((12, 64)) * np.sqrt(0.05)).astype(np.float32)
+    icfg = IndexConfig(build=TT.BuildConfig(leaf_capacity=64),
+                       search=SearchConfig(chunk=128, scan_block=256))
+    gpu = E.QueryEngine(E.make_backend("local", data, index_config=icfg))
+    cpu = E.QueryEngine(E.make_backend("local", data, index_config=icfg, device="cpu"))
+    path = str(tmp_path / "idx")
+    build_index_to_disk(TP.ArrayChunkSource(data, 1000), path, icfg, codec=codec,
+                        device=cuda)
+    for k in (1, 5):
+        before = klb.lb_sax_matrix.launches
+        g = gpu.knn(q, k=k, wave=True)
+        assert klb.lb_sax_matrix.launches - before == 1
+        c = cpu.knn(q, k=k, wave=True)
+        for f in g._fields:
+            assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), (k, f)
+        assert torch.equal(g.dists, gpu.knn(q, k=k).dists)
+        for prefetch in ("sync", "thread"):
+            og, oc = (E.QueryEngine(E.make_disk_backend(
+                "ooc-local", path, memory_budget_mb=0.25, prefetch=prefetch, device=d))
+                for d in (None, "cpu"))
+            wg, wc = og.knn(q, k=k, wave=True), oc.knn(q, k=k, wave=True)
+            fields = wg._fields if codec == "raw" else ("dists", "positions", "ids")
+            for f in fields:
+                assert torch.equal(getattr(wg, f).cpu(), getattr(wc, f)), (prefetch, k, f)
+            keys = ("rows_streamed", "runs_deduped", "runs_skipped_bsf",
+                    "wave_rows_shared") if codec == "raw" else ()
+            for key in ("wave_calls",) + keys:
+                assert og.stats()[key] == oc.stats()[key], (prefetch, k, key)
+            solo = og.knn(q, k=k)
+            assert torch.equal(wg.dists, solo.dists)
+            assert torch.equal(torch.sort(wg.ids.long(), 1).values,
+                               torch.sort(solo.ids.long(), 1).values)
 
 
 @pytest.mark.parametrize("codec", ["raw", "bf16"])
