@@ -47,13 +47,31 @@ Phases (any failure ends the run with a non-zero exit):
    answer equal to the query's per-query answer, exactly one ``KnnFailure``
    (the wrong length), its wave-mates answered; every kNN kernel must
    launch in this phase;
-7. the store's mutation path on that store: two journal segments of 1/32
+7. sharding at the same scale, on phase 4's data and phase 5's store
+   (before the journal): ``sharded``, 4 shards of N/4 on the one card
+   (``devices=["cuda:0"] * 4``), answering the 100 queries at k=1 and
+   k=10 through ``QueryEngine``, ids equal to phase 4's ``local`` answers
+   and dists bit-identical (each distance is the same difference-form sum
+   whichever shard holds its row), its build seconds, ms a query and peak
+   memory logged, ``lb_sax_matrix`` launched at least 4 x 100 times; then
+   the store's ``dist-ooc`` engines at 256 MiB a shard with the threaded
+   reader, each shard on its own thread and CUDA stream: 4 shards raw k=1,
+   raw k=10, bf16 k=10 and bf16 k=10 with ``wave=True``, and 1 shard bf16
+   k=10, dists bit-identical to phase 4's answers, positions and ids equal
+   (ids and positions as sets per row for the wave call), every shard's
+   ``rows_touched`` inside its ``row_range``, per-shard rows and bytes
+   streamed, ``imbalance`` and ``read_wait_seconds`` logged beside phase
+   5's ``ooc-local`` time for the same stream and k;
+   ``decode_bf16_ed_matrix`` and ``lb_sax_matrix`` must launch in this
+   phase;
+8. the store's mutation path on that store: two journal segments of 1/32
    of the base each (2 x 131,072 rows at the full size) appended in chunks
    of 65,536 and 8,192 rows, each append invalidating the store's cached
    engine; 100 queries (phase 4's first 72, 28 made from the journal rows)
-   answered with the rows pending by ``local``, ``scan``, ``ooc-scan`` and
-   ``ooc-local`` at k=1 and k=10, each held bit for bit to a brute-force
-   difference-form scan over base and journal on the card (journal hits at
+   answered with the rows pending by ``local``, ``scan``, ``ooc-scan``,
+   ``ooc-local`` and ``dist-ooc`` (4 shards) at k=1 and k=10, each held
+   bit for bit to a brute-force difference-form scan over base and
+   journal on the card (journal hits at
    position -1; at k=1 at least 14 of the 28 journal-made queries find
    their neighbour in the journal); ``compact()`` to generation 1, held bit
    for bit to a one-shot in-memory build over base and journal (tree,
@@ -63,7 +81,7 @@ Phases (any failure ends the run with a non-zero exit):
    kNN kernels must launch in this phase. The index directory (two
    generations side by side at the compaction's peak, about 14 GB at the
    full size) is removed after this phase, also on failure;
-8. kernels vs plain versions at the main path's shapes, with CUDA-event
+9. kernels vs plain versions at the main path's shapes, with CUDA-event
    times for kernel, plain version and library call (each launched from a
    host loop, as the engine launches them), and the bound;
    ``ed_matrix`` and ``decode_bf16_ed_matrix`` (on a strided view of a real
@@ -76,14 +94,14 @@ Phases (any failure ends the run with a non-zero exit):
    (``device_ms``), with their launches per run at each shape; ``ed_min``
    and ``ed_matrix`` held bit for bit to the exact fma references at both
    of ``ed_min``'s shapes and at 131,072 rows, and the ED witness;
-9. the card's answers against the CPU's on a small input (the CPU path is
+10. the card's answers against the CPU's on a small input (the CPU path is
    the one the test suite holds against the JAX reference);
-10. ``wkv6`` against its plain version and, bit for bit, against the exact
+11. ``wkv6`` against its plain version and, bit for bit, against the exact
    fma reference ``wkv6_fma_ref``: the LM path's prefill shape (B=4,
    T=512, H=64, K=V=64) with a nonzero state, the decode shape (T=1), bf16
    r/k/v as served and float32, the extreme decays and the
    overflow-then-reset case; host-loop and CUDA-graph times at both shapes;
-11. LM serving at full width: ``rwkv6-7b`` (all 32 layers, d_model 4096,
+12. LM serving at full width: ``rwkv6-7b`` (all 32 layers, d_model 4096,
    bf16 compute, float32 parameters) with random weights from a seed, 8
    requests of 512-token prompts through ``ServeEngine`` in two waves of 4,
    32 new tokens each; ``wkv6`` must launch 32 x (1 + 31) x 2 = 2,048
@@ -91,7 +109,7 @@ Phases (any failure ends the run with a non-zero exit):
    the engine's tokens; served again in float32 with the same weights, each
    first token equals the request's solo run wherever its top-2 margin
    exceeds twice the float32 logit tolerance;
-12. the card against the CPU at full width and 2 layers in float32: a
+13. the card against the CPU at full width and 2 layers in float32: a
    64-token prefill and 4 decode steps, logits within 1e-4, equal tokens.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
@@ -545,7 +563,7 @@ def phase_disk(data, queries, local, answers, root: str, profile: bool = False):
     with the bf16 codec), served by ``ooc-scan`` and ``ooc-local`` engines
     of the store under a 256 MiB budget. Returns (the path's kernel
     launches, blocks of its encoded, LSD and LRD files staged on the card
-    for phase 8, summary, the open store for phases 6 and 7).
+    for phase 9, summary, the open store for phases 6, 7 and 8).
 
     At the full size phase 1 of ``ooc-local`` seeds 1,624 of the 1,635
     leaves, and the rest must go through phase 3 (the LSD sidecar and the
@@ -956,6 +974,143 @@ def phase_waves(queries, local, answers, hx, summary):
         check(count > 0, f"wave phase: {kname} was never launched")
     return out
 
+SHARDS = 4                      # the shards phase's shard count, all on one card
+SHARD_RUNS = ((SHARDS, "raw", 1, False), (SHARDS, "raw", 10, False),
+              (SHARDS, "bf16", 10, False), (SHARDS, "bf16", 10, True),
+              (1, "bf16", 10, False))
+
+
+def phase_shards(data, queries, local, answers, hx, summary):
+    """Sharding at phase 4's scale (before the journal): ``sharded`` with
+    4 shards on the one card, built from phase 4's data, and the store's
+    ``dist-ooc`` engines (``SHARD_RUNS``: shards, stream, k, wave), every
+    answer held bit for bit to phase 4's (ids and positions as sets per row
+    for the wave call), every shard reader inside its row range. Returns
+    the phase's summary."""
+    import torch
+    from repro_torch.core.engine import QueryEngine, make_backend
+    from repro_torch.core.search import SearchConfig
+
+    nq = len(queries)
+    out: dict = {"ms_per_query": {}, "dist": {}, "launches": {}}
+    reset_counters()
+
+    # sharded: one index a shard of N/4 rows, all four on the card of the data
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sharded = make_backend("sharded", data, index_config=local.index.config,
+                           devices=[data.device] * SHARDS)
+    torch.cuda.synchronize()
+    out["sharded_build_s"] = time.perf_counter() - t0
+    st = sharded.stacked
+    out["shard_n_pad"] = st.layout.lrd.shape[1]
+    log(f"[shards] sharded: {SHARDS} indexes of {st.layout.num_series} rows built on "
+        f"{sharded.devices} in {out['sharded_build_s']:.2f}s (phase 4's one index: "
+        f"{summary['build_s']:.2f}s); stacked N_pad {st.layout.lrd.shape[1]}, leaves "
+        f"(padded) {st.layout.num_leaves}, max_leaf {st.layout.max_leaf}, depth "
+        f"{st.max_depth}")
+    eng = QueryEngine(sharded)
+    for k in (1, 10):
+        before = read_counters()
+        t0 = time.perf_counter()
+        res = eng.knn(queries, k=k)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / nq
+        after = read_counters()
+        want = answers[("local", k)]
+        check(torch.equal(res.dists, want.dists),
+              f"[shards] sharded k={k}: dists are not bit-identical to phase 4's local "
+              f"({int((res.dists != want.dists).sum())} entries)")
+        check(torch.equal(res.ids.long(), want.ids.long()),
+              f"[shards] sharded k={k}: ids differ from phase 4's local answers")
+        tag = f"sharded k={k}"
+        out["ms_per_query"][tag] = ms
+        out["launches"][tag] = {key: after[key] - before[key] for key in after}
+        was = summary["ms_per_query"][f"local_k{k}"]
+        log(f"[shards] {tag}: {ms:.3f} ms/query against {was:.3f} for phase 4's local; "
+            f"answers bit for bit phase 4's; launches {out['launches'][tag]}")
+    out["sharded_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    lb = sum(c["lb_sax_matrix"] for c in out["launches"].values())
+    check(lb >= SHARDS * nq, f"[shards] sharded: lb_sax_matrix launched {lb} < "
+                             f"{SHARDS} x {nq} times")
+    log(f"[shards] sharded: peak device memory {out['sharded_peak_gib']:.2f} GiB (phase "
+        f"4: {summary['peak_gib']:.2f}, its index still resident)")
+    del sharded, eng, st
+    torch.cuda.empty_cache()
+
+    # dist-ooc over phase 5's store: every shard streams its own rows
+    want_sets = {key: (torch.sort(res.ids.long(), 1).values,
+                       torch.sort(res.positions.long(), 1).values)
+                 for key, res in answers.items() if key[0] == "local"}
+    for shards, codec, k, wave in SHARD_RUNS:
+        eng = hx.engine("dist-ooc", search=SearchConfig(codec=codec, prefetch="thread"),
+                        memory_budget_mb=DISK_BUDGET_MB, shards=shards)
+        before, d0 = read_counters(), eng.telemetry().dist
+        t0 = time.perf_counter()
+        res = eng.knn(queries, k=k, wave=wave)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / nq
+        after = read_counters()
+        d = eng.telemetry().dist
+        tag = f"dist-ooc shards={shards} {codec} k={k}{' wave' if wave else ''}"
+        want = answers[("local", k)]
+        check(torch.equal(res.dists, want.dists),
+              f"[shards] {tag}: dists are not bit-identical to phase 4's local "
+              f"({int((res.dists != want.dists).sum())} entries)")
+        if wave:
+            ids, pos = want_sets[("local", k)]
+            check(torch.equal(torch.sort(res.ids.long(), 1).values, ids)
+                  and torch.equal(torch.sort(res.positions.long(), 1).values, pos),
+                  f"[shards] {tag}: ids or positions differ from phase 4's (as sets)")
+        else:
+            check(torch.equal(res.ids.long(), want.ids.long())
+                  and torch.equal(res.positions.long(), want.positions.long()),
+                  f"[shards] {tag}: ids or positions differ from phase 4's local")
+        for s, ((lo, hi), touched) in enumerate(zip(d.row_range, d.rows_touched)):
+            check(touched is not None and lo <= touched[0] and touched[1] <= hi,
+                  f"[shards] {tag}: shard {s} touched rows {touched} outside {[lo, hi]}")
+        rows = [a - b for a, b in zip(d.rows_streamed, d0.rows_streamed)]
+        nbytes = [a - b for a, b in zip(d.bytes_streamed, d0.bytes_streamed)]
+        wait = [a - b for a, b in zip(d.read_wait_seconds, d0.read_wait_seconds)]
+        imbalance = max(rows) / max(min(rows), 1)
+        launched = {key: after[key] - before[key] for key in after}
+        was = summary["disk"]["calls"][f"ooc-local {codec} k={k} thread"]["ms_per_query"]
+        out["ms_per_query"][tag] = ms
+        out["launches"][tag] = launched
+        out["dist"][tag] = {"rows_streamed": rows, "bytes_streamed": nbytes,
+                            "read_wait_seconds": wait, "imbalance": imbalance,
+                            "row_range": d.row_range, "rows_touched": d.rows_touched}
+        log(f"[shards] {tag}: {ms:.3f} ms/query against {was:.3f} for phase 5's "
+            f"ooc-local {codec} k={k} ({ms - was:+.3f}); rows_streamed {rows}, "
+            f"bytes_streamed {nbytes}, imbalance {imbalance:.3f} (plan "
+            f"{d.plan_imbalance:.3f}), read_wait_seconds "
+            f"{[round(w, 4) for w in wait]}, row_range {d.row_range}, rows_touched "
+            f"{d.rows_touched}; launches {launched}; answers bit for bit phase 4's")
+        if codec == "bf16":
+            check(launched["decode_bf16_ed_matrix"] > 0,
+                  f"[shards] {tag}: decode_bf16_ed_matrix never launched")
+    # where the threaded fan-out's time goes: the shards of the 4-shard bf16
+    # k=10 engine driven one after another on this thread, no pool
+    eng = hx.engine("dist-ooc", search=SearchConfig(codec="bf16", prefetch="thread"),
+                    memory_budget_mb=DISK_BUDGET_MB, shards=SHARDS)
+    shard_ms = []
+    for sub in eng.backend._subs:
+        t0 = time.perf_counter()
+        QueryEngine(sub).knn(queries, k=10)
+        torch.cuda.synchronize()
+        shard_ms.append(1e3 * (time.perf_counter() - t0) / nq)
+    out["sequential_shard_ms"] = shard_ms
+    threaded = out["ms_per_query"][f"dist-ooc shards={SHARDS} bf16 k=10"]
+    log(f"[shards] the {SHARDS} shards of dist-ooc bf16 k=10 one after another on the "
+        f"main thread: {[round(v, 3) for v in shard_ms]} ms/query, {sum(shard_ms):.3f} in "
+        f"all, against {threaded:.3f} for the threaded fan-out")
+    launches = read_counters()
+    out["phase_launches"] = launches
+    log(f"[shards] kernel launches during the shards phase: {launches}")
+    for kname in ("lb_sax_matrix", "decode_bf16_ed_matrix"):
+        check(launches[kname] > 0, f"shards phase: {kname} was never launched")
+    return out
+
 
 def journal_rows(num: int) -> int:
     """Rows of each of the store phase's two journal segments: 1/32 of the
@@ -1040,7 +1195,10 @@ def phase_store(hx, data, queries, summary):
     log(f"[store] brute-force difference-form scan over A||J ({aj.shape[0]} rows): "
         f"{time.perf_counter() - t0:.2f}s")
 
-    backends = ("local", "scan", "ooc-scan", "ooc-local")
+    backends = ("local", "scan", "ooc-scan", "ooc-local", "dist-ooc")
+
+    def shards_of(name) -> dict:
+        return {"shards": SHARDS} if name == "dist-ooc" else {}
 
     def timed_call(fn):
         t0 = time.perf_counter()
@@ -1050,7 +1208,7 @@ def phase_store(hx, data, queries, summary):
 
     def made_engine(name):
         t0 = time.perf_counter()
-        eng = hx.engine(name, memory_budget_mb=DISK_BUDGET_MB)
+        eng = hx.engine(name, memory_budget_mb=DISK_BUDGET_MB, **shards_of(name))
         log(f"[store] {name} engine over generation {hx.generation} made in "
             f"{time.perf_counter() - t0:.2f}s")
         return eng
@@ -1063,7 +1221,8 @@ def phase_store(hx, data, queries, summary):
             # journal merged: their difference is the merge's cost
             _, base_ms = timed_call(lambda: eng.knn(q, k=k))
             res, ms = timed_call(
-                lambda: hx.query(q, k, backend=name, memory_budget_mb=DISK_BUDGET_MB))
+                lambda: hx.query(q, k, backend=name, memory_budget_mb=DISK_BUDGET_MB,
+                                 **shards_of(name)))
             tag = f"{name} k={k}"
             out["ms_per_query"][f"{tag} base only"] = base_ms
             want_d, want_p = ref_d[:, :k], ref_p[:, :k]
@@ -1175,7 +1334,8 @@ def phase_store(hx, data, queries, summary):
         made_engine(name)
         for k in (1, 10):
             res, ms = timed_call(
-                lambda: hx.query(q, k, backend=name, memory_budget_mb=DISK_BUDGET_MB))
+                lambda: hx.query(q, k, backend=name, memory_budget_mb=DISK_BUDGET_MB,
+                                 **shards_of(name)))
             want = before_compact[(name, k)]
             check(torch.equal(res.dists, want.dists) and torch.equal(res.ids, want.ids),
                   f"[store] {name} k={k}: the answers after compaction differ from "
@@ -1199,7 +1359,8 @@ def phase_store(hx, data, queries, summary):
             if name in ref:
                 was = summary["ms_per_query"][ref[name].format(k)]
             else:
-                was = summary["disk"]["calls"][f"{name} bf16 k={k} thread"]["ms_per_query"]
+                streamed = "ooc-local" if name == "dist-ooc" else name
+                was = summary["disk"]["calls"][f"{streamed} bf16 k={k} thread"]["ms_per_query"]
             now = out["ms_per_query"][f"{name} k={k}"]
             log(f"[store] {name} k={k}: {now:.3f} ms/query with the journal merged against "
                 f"{was:.3f} ms/query in phase {4 if name in ref else 5} ({now - was:+.3f}; "
@@ -1325,10 +1486,11 @@ def _bound(r: dict) -> None:
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernel_timing(data, queries, local, launches, wave_launches):
+def phase_kernel_timing(data, queries, local, launches, wave_launches, shard_lb):
     """The kernels line's rows at the main path's shapes, and apart the
     ``ed_matrix`` shape of an out-of-core block; ``wave_launches`` maps a wave's query rows to
-    the ``lb_sax_matrix`` launches of phase 6 at that shape."""
+    the ``lb_sax_matrix`` launches of phase 6 at that shape, ``shard_lb`` is (a shard's
+    padded rows, the ``lb_sax_matrix`` launches of phase 7's ``sharded`` calls)."""
     import torch
     from repro_torch.core import summaries as S
     from repro_torch.kernels import ed as ked, lb_sax as klb, ref
@@ -1339,26 +1501,30 @@ def phase_kernel_timing(data, queries, local, launches, wave_launches):
                                                 queries.shape[1]))])
     num, n = data.shape
 
-    # lb_sax_matrix: one query row against the whole LSD sidecar (phase 3)
-    lsd = local.index.layout.lsd
-    q_paa = S.paa(queries[:1], lsd.shape[1])
-    got = klb.lb_sax_matrix(q_paa, lsd, n)
-    want = ref.lb_sax_matrix_ref(q_paa, lsd, n)
-    err = assert_close(got, want, "float32", "lb_sax main shape")
-    check(torch.equal(got, want), "lb_sax main shape: bits differ")
-    m = lsd.shape[1]
-    nbytes = q_paa.numel() * 4 + lsd.numel() + 2 * 256 * 4 + got.numel() * 4
-    ops = got.numel() * (6 * m + 1)
-    rows.append(dict(
-        name="lb_sax_matrix", route="cuda",
-        source="src/repro_torch/kernels/csrc/lb_sax.cu",
-        replaces="src/repro/kernels/lb_sax.py:69",
-        shape=[1, lsd.shape[0], m], launches=launches["lb_sax_matrix"],
-        max_abs_err=err,
-        ms=time_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=50, warmup=3),
-        device_ms=device_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=200),
-        plain_ms=time_ms(lambda: ref.lb_sax_matrix_ref(q_paa, lsd, n), reps=5),
-        library_ms=None, bytes=nbytes, ops=ops))
+    # lb_sax_matrix: one query row against the whole LSD sidecar (phase 3),
+    # and against one shard's (phase 7's sharded calls; the sidecar's first
+    # rows stand in for a shard's: the same shape and the same work)
+    lsd_all = local.index.layout.lsd
+    m = lsd_all.shape[1]
+    q_paa = S.paa(queries[:1], m)
+    for lsd, count, tag in ((lsd_all, launches["lb_sax_matrix"], "main"),
+                            (lsd_all[:shard_lb[0]], shard_lb[1], "shard")):
+        got = klb.lb_sax_matrix(q_paa, lsd, n)
+        want = ref.lb_sax_matrix_ref(q_paa, lsd, n)
+        err = assert_close(got, want, "float32", f"lb_sax {tag} shape")
+        check(torch.equal(got, want), f"lb_sax {tag} shape: bits differ")
+        rows.append(dict(
+            name="lb_sax_matrix", route="cuda",
+            source="src/repro_torch/kernels/csrc/lb_sax.cu",
+            replaces="src/repro/kernels/lb_sax.py:69",
+            shape=[1, lsd.shape[0], m], launches=count, max_abs_err=err,
+            ms=time_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=50, warmup=3),
+            device_ms=device_ms(lambda: klb.lb_sax_matrix(q_paa, lsd, n), reps=200),
+            plain_ms=time_ms(lambda: ref.lb_sax_matrix_ref(q_paa, lsd, n), reps=5),
+            library_ms=None,
+            bytes=q_paa.numel() * 4 + lsd.numel() + 2 * 256 * 4 + got.numel() * 4,
+            ops=got.numel() * (6 * m + 1)))
+    lsd = lsd_all
 
     # lb_sax_matrix: a wave's phase 3, the wave's PAA matrix against the
     # whole LSD sidecar in one launch a wave call: the query bucket's (phase
@@ -1628,7 +1794,7 @@ def phase_wkv6_kernel():
     """``wkv6`` against its plain version (within the tolerances) and
     against the exact fma reference (bit for bit) on the card at the LM
     path's prefill and decode shapes, with bf16 r, k, v as served and in
-    float32 (phase 12's path), and on the extreme decays and the
+    float32 (phase 13's path), and on the extreme decays and the
     overflow-then-reset case; times at both shapes by the host loop and by a
     CUDA graph. Returns the kernel's row for the ``{"kernels": ...}`` line
     (its launches are filled in by the serving phase), with ``by_shape``:
@@ -1944,6 +2110,8 @@ def main(argv=None) -> int:
         try:
             summary["waves"] = timed("waves", phase_waves, queries, local, answers, hx,
                                      summary)
+            summary["shards"] = timed("shards", phase_shards, data, queries, local, answers,
+                                      hx, summary)
             summary["store"] = timed("store", phase_store, hx, data, queries, summary)
         finally:
             hx.close()
@@ -1958,24 +2126,31 @@ def main(argv=None) -> int:
     wl = summary["waves"]["launches"]
     wave_launches = {bucket: summary["waves"]["lb_sax_wave_launches"],
                      SERVE_SLOTS: wl["serving local"]["lb_sax_matrix"]}
+    shard_lb = (summary["shards"]["shard_n_pad"],
+                sum(c["lb_sax_matrix"] for t, c in summary["shards"]["launches"].items()
+                    if t.startswith("sharded")))
     rows, shapes = timed("kernel_timing", phase_kernel_timing, data, queries, local, launches,
-                         wave_launches)
+                         wave_launches, shard_lb)
     disk_row, ooc_min_row, disk_shapes = timed("disk_kernels", phase_disk_kernels, queries,
                                                blocks, disk_launches)
     rows += [disk_row, ooc_min_row]
     shapes += disk_shapes
     del blocks
     # launches per run of the kernels at each timed shape (query rows,
-    # series rows) in phases 4-6: ed_matrix runs on 4096-row blocks only
+    # series rows) in phases 4-7: ed_matrix runs on 4096-row blocks only
     # (the k>1 scan, ooc-scan raw k>1); decode_bf16_ed_matrix on 131,072-row
     # blocks in ooc-scan and on leaves padded to max_leaf rows in ooc-local;
     # lb_sax_matrix once a query over the whole LSD sidecar in local (phase
     # 4), once a wave call over it (phase 6, the bucket's rows or the 32
     # slots), and on 131,072-row LSD blocks (the last of each call partial)
-    # in ooc-local. The ooc-local serving run's launches (32-row waves over
-    # LSD blocks and leaves) fall in no timed shape and are counted apart
+    # in ooc-local and dist-ooc (whose shards pad leaves to the global
+    # max_leaf), and once a query over a shard's LSD in sharded (phase 7).
+    # The ooc-local serving run's launches (32-row waves over LSD blocks and
+    # leaves) fall in no timed shape and are counted apart
     calls = [(t, c["launches"]) for t, c in summary["disk"]["calls"].items()]
     calls += [(t, c) for t, c in wl.items() if not t.startswith("serving")]
+    calls += [(t, c) for t, c in summary["shards"]["launches"].items()
+              if t.startswith("dist-ooc")]
 
     def count(kname, prefix):
         return sum(c[kname] for t, c in calls if t.startswith(prefix))
@@ -1984,15 +2159,19 @@ def main(argv=None) -> int:
         ("lb_sax_matrix", 1, n_pad): launches["lb_sax_matrix"],
         ("lb_sax_matrix", bucket, n_pad): wave_launches[bucket],
         ("lb_sax_matrix", SERVE_SLOTS, n_pad): wave_launches[SERVE_SLOTS],
-        ("lb_sax_matrix", bucket, 1 << 17): count("lb_sax_matrix", "ooc-local"),
+        ("lb_sax_matrix", 1, shard_lb[0]): shard_lb[1],
+        ("lb_sax_matrix", bucket, 1 << 17): (count("lb_sax_matrix", "ooc-local")
+                                             + count("lb_sax_matrix", "dist-ooc")),
         ("ed_matrix", bucket, 4096): launches["ed_matrix"] + count("ed_matrix", ""),
         ("ed_matrix", bucket, 1 << 17): 0,
         ("ed_min", bucket, data.shape[0]): launches["ed_min"],
         ("ed_min", bucket, 1 << 17): count("ed_min", "ooc-scan"),
         ("decode_bf16_ed_matrix", bucket, 1 << 17): count("decode_bf16_ed_matrix",
                                                           "ooc-scan"),
-        ("decode_bf16_ed_matrix", bucket, 4096): count("decode_bf16_ed_matrix",
-                                                       "ooc-local"),
+        ("decode_bf16_ed_matrix", bucket, 4096): (count("decode_bf16_ed_matrix",
+                                                        "ooc-local")
+                                                  + count("decode_bf16_ed_matrix",
+                                                          "dist-ooc")),
     }
     log(f"[timing] launches of the ooc-local serving run (32-row waves, in no timed shape): "
         f"{wl['serving ooc-local bf16']}")
@@ -2030,7 +2209,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_lm_cpu_agreement()
     summary["lm"]["phases_s"] = time.perf_counter() - t_lm
-    log(f"[lm] the LM phases (10-12) took {summary['lm']['phases_s']:.1f}s")
+    log(f"[lm] the LM phases (11-13) took {summary['lm']['phases_s']:.1f}s")
     log(f"[main] summary {json.dumps(summary)}")
     phase_s["lm"] = round(summary["lm"]["phases_s"], 1)
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")

@@ -1,6 +1,14 @@
-"""Thread-ownership check for single-owner structures, under
-``REPRO_SANITIZE=1`` (a copy of ``ThreadAffinity`` from
-``repro/analysis/sanitize.py``).
+"""Runtime concurrency checks under ``REPRO_SANITIZE=1`` (a copy of the
+lockdep and thread-ownership parts of ``repro/analysis/sanitize.py``).
+
+* :class:`ThreadAffinity`: first-touch thread ownership of single-owner
+  structures (``SlotQueue``);
+* lockdep: :func:`wrap_lock` feeds a process-global lock-acquisition-order
+  graph that raises :class:`LockOrderError` before an ABBA acquisition can
+  block, and :func:`lockdep_task` asserts that a thread-pool work item
+  (``dist-ooc``'s shard fan-out) starts and ends holding no tracked lock.
+
+Every check collapses to a no-op when the variable is unset.
 """
 from __future__ import annotations
 
@@ -16,13 +24,174 @@ def sanitize_enabled() -> bool:
     return os.environ.get(ENV_VAR, "") not in ("", "0")
 
 
-class ThreadOwnershipError(RuntimeError):
+class SanitizerError(RuntimeError):
+    """A runtime sanitizer check failed."""
+
+
+class ThreadOwnershipError(SanitizerError):
     """A single-owner structure (``SlotQueue``) was touched from a thread
     other than the one it is bound to."""
 
 
+class LockOrderError(SanitizerError):
+    """Two locks were acquired in opposite orders on different paths: a
+    latent ABBA deadlock. Raised *before* blocking, at the acquisition that
+    would close the cycle, with both acquisition stacks."""
+
+
+class HeldLockError(SanitizerError):
+    """A thread-pool work item started or finished while holding a lock:
+    pool threads must never carry locks across work-item boundaries."""
+
+
 def _stack(skip: int = 2) -> str:
     return "".join(traceback.format_stack()[:-skip])
+
+
+class _LockDep:
+    """Process-global lock-acquisition-order graph.
+
+    An edge A->B is recorded (with the stack that created it) the first
+    time B is acquired while A is held; acquiring B with A held when a path
+    B->...->A exists means another code path takes the same locks in the
+    opposite order, and :class:`LockOrderError` is raised before the
+    acquisition can block. Keys are the wrapper-supplied names, so two
+    instances sharing a name class (per-shard locks) are one node: the
+    conservative direction for deadlock detection.
+    """
+
+    def __init__(self):
+        self._mutex = threading.Lock()       # guards the edge graph
+        self._edges: dict = {}               # (a, b) -> recording stack
+        self._held = threading.local()
+
+    def held(self) -> list:
+        if not hasattr(self._held, "names"):
+            self._held.names = []
+        return self._held.names
+
+    def reset(self) -> None:
+        """Clear the edge graph and the calling thread's held list (test
+        isolation)."""
+        with self._mutex:
+            self._edges.clear()
+        if hasattr(self._held, "names"):
+            self._held.names = []
+
+    def _find_path(self, src: str, dst: str):
+        """Stack of the first edge on a src->...->dst path, or None."""
+        seen, frontier = {src}, [(src, None)]
+        while frontier:
+            node, first_stack = frontier.pop()
+            for (a, b), stack in self._edges.items():
+                if a != node or b in seen:
+                    continue
+                edge_stack = first_stack or stack
+                if b == dst:
+                    return edge_stack
+                seen.add(b)
+                frontier.append((b, edge_stack))
+        return None
+
+    def note_acquire(self, name: str) -> None:
+        held = self.held()
+        if held:
+            with self._mutex:
+                for prior in held:
+                    if prior == name:
+                        continue    # reentrant / same name class
+                    reverse = self._find_path(name, prior)
+                    if reverse is not None:
+                        raise LockOrderError(
+                            f"lock-order cycle: acquiring '{name}' while "
+                            f"holding '{prior}', but '{name}' -> '{prior}' "
+                            "was already established: the ABBA deadlock "
+                            "shape. Acquisition stack establishing the "
+                            f"opposite order:\n{reverse}\nCurrent "
+                            f"acquisition stack:\n{_stack()}")
+                    self._edges.setdefault((prior, name), _stack())
+        held.append(name)
+
+    def note_release(self, name: str) -> None:
+        held = self.held()
+        for i in range(len(held) - 1, -1, -1):   # the latest acquisition
+            if held[i] == name:
+                del held[i]
+                break
+
+
+#: Process-global lockdep state (shared so cycles across subsystems are
+#: visible). Tests call ``LOCKDEP.reset()`` between cases.
+LOCKDEP = _LockDep()
+
+
+class LockdepLock:
+    """Transparent proxy over a ``threading.Lock`` / ``RLock`` /
+    ``Condition`` that feeds the acquisition-order graph; every other
+    attribute delegates to the wrapped object."""
+
+    def __init__(self, lock, name: str):
+        self._lock = lock
+        self._name = name
+
+    def acquire(self, *args, **kwargs):
+        LOCKDEP.note_acquire(self._name)   # raises before blocking
+        ok = self._lock.acquire(*args, **kwargs)
+        if not ok:                          # a non-blocking attempt failed
+            LOCKDEP.note_release(self._name)
+        return ok
+
+    def release(self):
+        self._lock.release()
+        LOCKDEP.note_release(self._name)
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+    def __getattr__(self, attr):
+        return getattr(self._lock, attr)
+
+    def __repr__(self):
+        return f"LockdepLock({self._name}, {self._lock!r})"
+
+
+def wrap_lock(lock, name: str):
+    """Wrap a lock or condition for lockdep when sanitizing, else return it
+    unchanged (no overhead in production)."""
+    if sanitize_enabled():
+        return LockdepLock(lock, name)
+    return lock
+
+
+def lockdep_task(fn, name: str = "pool-task"):
+    """Wrap a thread-pool work item: entering or leaving it while holding
+    any lockdep-tracked lock raises :class:`HeldLockError` (pool threads are
+    recycled, so a carried lock deadlocks a *later*, unrelated item).
+    Returns ``fn`` itself when not sanitizing."""
+    if not sanitize_enabled():
+        return fn
+
+    def wrapped(*args, **kwargs):
+        held = list(LOCKDEP.held())
+        if held:
+            raise HeldLockError(
+                f"work item '{name}' entered while holding {held}: pool "
+                f"work must start lock-free.\n{_stack()}")
+        result = fn(*args, **kwargs)
+        leaked = list(LOCKDEP.held())
+        if leaked:
+            raise HeldLockError(
+                f"work item '{name}' returned while still holding {leaked}: "
+                f"a recycled pool thread would deadlock the next item.\n"
+                f"{_stack()}")
+        return result
+
+    return wrapped
 
 
 class ThreadAffinity:

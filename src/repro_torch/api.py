@@ -24,10 +24,10 @@ The directory is the reference's format: a store either package wrote
 opens, appends, serves and compacts in the other.
 
 In-memory serving goes through :func:`make_backend` + :class:`QueryEngine`
-(``local`` | ``scan`` | ``scan-mxu``); the disk backends through
-:meth:`Hercules.engine` or :func:`make_disk_backend` (``local`` | ``scan``
-| ``ooc-scan`` | ``ooc-local``). Every servable name lives in the one
-:data:`BACKENDS` registry. ``engine.knn(queries, wave=True)`` answers a
+(``local`` | ``scan`` | ``scan-mxu`` | ``sharded``); the disk backends
+through :meth:`Hercules.engine` or :func:`make_disk_backend` (``local`` |
+``scan`` | ``ooc-scan`` | ``ooc-local`` | ``dist-ooc``). Every servable
+name lives in the one :data:`BACKENDS` registry. ``engine.knn(queries, wave=True)`` answers a
 batch through the backend's wave plan (:func:`wave_knn` for ``local``),
 bit for bit the per-query answers, and :class:`KnnServeEngine` serves a
 stream of submitted queries in waves over any engine::
@@ -38,15 +38,27 @@ stream of submitted queries in waves over any engine::
     answers = serve.drain()            # {rid: KnnAnswer | KnnFailure}
     serve.telemetry().serving          # waves, rejected, failed, ...
 
-The sharded and ``dist-ooc`` backends are not ported yet, so their names
-are not here.
+**Sharding.** ``make_backend("sharded", data, num_shards=4)`` builds one
+index a contiguous shard (:func:`build_distributed_index`, a
+:class:`StackedIndex`); ``hx.engine("dist-ooc", shards=4)`` serves one
+saved index from four shards, each streaming only its own leaf-run row
+range (:class:`DistOutOfCoreBackend`; per-shard counters in
+``telemetry().dist``, a :class:`DistTelemetry`). A shard runs on its entry
+of ``devices`` (one a shard, repeats allowed: ``["cuda:0"] * 4`` puts four
+shards on one card); by default shards go round-robin over the visible
+cards. Answers equal ``local``'s bit for bit.
 """
 from repro_torch.core.engine import (  # noqa: F401
-    BACKENDS, BackendSpec, EngineConfig, LatencyTelemetry, LocalBackend,
-    OocTelemetry, OutOfCoreLocalBackend, OutOfCoreScanBackend, PathsTelemetry,
-    PlanCacheTelemetry, PruningTelemetry, QueryEngine, ScanBackend,
-    SearchBackend, Telemetry, backend_names, dense_scan_knn, kernel_scan_knn,
-    make_backend, make_disk_backend, resolve_backend_name,
+    BACKENDS, BackendSpec, DistTelemetry, EngineConfig, LatencyTelemetry,
+    LocalBackend, OocTelemetry, OutOfCoreLocalBackend, OutOfCoreScanBackend,
+    PathsTelemetry, PlanCacheTelemetry, PruningTelemetry, QueryEngine,
+    ScanBackend, SearchBackend, ShardedBackend, Telemetry, backend_names,
+    dense_scan_knn, kernel_scan_knn, make_backend, make_disk_backend,
+    resolve_backend_name,
+)
+from repro_torch.distributed import (  # noqa: F401
+    DistOutOfCoreBackend, StackedIndex, build_distributed_index,
+    distributed_knn,
 )
 from repro_torch.kernels.compat import KERNEL_MODES, resolve_kernel_mode  # noqa: F401
 from repro_torch.core.index import HerculesIndex, IndexConfig  # noqa: F401

@@ -16,6 +16,11 @@ Port of the in-memory half of ``repro/core/engine.py``:
   memory budget: the raw rows stream host-to-device in budget-bounded
   blocks, or under a lossy codec the encoded rows stream and only feed
   sound bounds, with every reported distance re-checked on float32 rows;
+* :class:`ShardedBackend` (``sharded``) -- the series-sharded
+  :class:`~repro_torch.distributed.search.StackedIndex`: per-shard exact
+  top-k on each shard's device, merged by one stable sort. Out-of-core
+  sharded serving (``dist-ooc``) is
+  :class:`repro_torch.distributed.ooc.DistOutOfCoreBackend`;
 * :class:`QueryEngine` -- a serving session over one backend: pads each
   query batch to a bucket size, keeps an LRU cache of plans keyed by the
   whole ``SearchConfig`` and the wave flag, and reports telemetry. A plan
@@ -24,8 +29,6 @@ Port of the in-memory half of ``repro/core/engine.py``:
   backend's wave plan (:meth:`BackendBase.make_wave_plan`): shared
   descent, a shared BSF matrix and once-per-wave fetches, bit for bit the
   per-query answers.
-
-The sharded backends and ``dist-ooc`` come with later slices.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ from repro_torch.core.tree import HerculesTree, route_to_leaf
 from repro_torch.data.pipeline import (READ_STAT_KEYS, ArrayChunkSource,
                                        iter_device_chunks, iter_scheduled_chunks,
                                        make_chunk_reader)
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import resolve_device, shard_devices, synchronize
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.compat import resolve_kernel_mode
 
@@ -1170,6 +1173,81 @@ class OutOfCoreLocalBackend(_OutOfCoreBase):
 
 
 # ---------------------------------------------------------------------------
+# Sharded backend -- the series-sharded StackedIndex over a list of devices
+# ---------------------------------------------------------------------------
+
+class ShardedBackend(BackendBase):
+    """Series-sharded Hercules (:class:`~repro_torch.distributed.search.
+    StackedIndex`): each shard's exact top-k on its entry of ``devices``
+    (default: one shard a visible card, round-robin), merged on the first
+    by a stable sort, ties toward the lower shard. With one shard this is
+    the local pipeline (the same arithmetic, the same answers).
+
+    ``positions`` in results are -1 (layout positions are per shard; the
+    global ``ids`` are exact) and the per-query pruning telemetry is
+    zeroed, as in the reference. There is no wave plan: ``wave=True``
+    serves through the regular plan.
+    """
+
+    name = "sharded"
+
+    def __init__(self, stacked, devices=None):
+        from repro_torch.distributed.search import shard_view
+
+        self.stacked = stacked
+        self.devices = shard_devices(stacked.num_shards, devices, stacked.device)
+        # each shard's unstacked view on its device, moved once
+        self._shards = [shard_view(stacked, s, dev)
+                        for s, dev in enumerate(self.devices)]
+        self._offsets = stacked.shard_offsets.tolist()
+
+    @property
+    def plan_signature(self) -> tuple:
+        """What a plan binds besides ``cfg``: the shard count, the devices
+        and the sharded index's shape. Part of every plan-cache key, so a
+        plan never serves another device list or another index."""
+        st = self.stacked
+        return (self.name, st.num_shards, tuple(str(d) for d in self.devices),
+                st.max_depth, st.layout.num_series, st.layout.series_len)
+
+    @property
+    def series_len(self) -> int:
+        return self.stacked.layout.series_len
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def base_config(self) -> SearchConfig:
+        return self.stacked.config.search
+
+    def _validate(self, cfg: SearchConfig) -> None:
+        validate_runtime_config(cfg, self.stacked.layout.lrd.shape[-2])
+
+    def _bind(self, cfg):
+        from repro_torch.distributed.search import sharded_knn
+
+        def run(q):
+            d, gid = sharded_knn(self._shards, self._offsets, q, cfg,
+                                 self.stacked.max_depth)
+            return self._fill_result(d, torch.full_like(gid, -1), gid)
+
+        return run
+
+    def stats(self) -> dict:
+        st = self.stacked
+        return {"num_shards": st.num_shards,
+                "num_series": st.num_shards * st.layout.num_series,
+                "series_len": st.layout.series_len}
+
+    def describe(self) -> dict:
+        d = super().describe()
+        d.update(self.stats(), devices=[str(dev) for dev in self.devices])
+        return d
+
+
+# ---------------------------------------------------------------------------
 # The engine: bucketed batching + plan LRU + telemetry
 # ---------------------------------------------------------------------------
 
@@ -1236,12 +1314,35 @@ class OocTelemetry:
 
 
 @dataclasses.dataclass
+class DistTelemetry:
+    """Per-shard accounting of the sharded out-of-core backend
+    (``dist-ooc``; ``None`` for every other backend). List fields are
+    indexed by shard. ``imbalance`` is the max/min per-shard
+    ``rows_streamed`` ratio of the traffic served; ``plan_imbalance`` the
+    same ratio over the shard plan's row counts, and ``balance_warning``
+    mirrors the ``repro_torch.storage.partition`` guardrail (plan ratio
+    above ``BALANCE_WARN_RATIO``). ``row_range`` is each shard's assigned
+    ``[lo, hi)`` file-row range and ``rows_touched`` the absolute extremes
+    its readers touched (``None`` until the first read): touched lies
+    inside assigned, always."""
+    shards: int = 0
+    rows_streamed: list = dataclasses.field(default_factory=list)
+    read_wait_seconds: list = dataclasses.field(default_factory=list)
+    bytes_streamed: list = dataclasses.field(default_factory=list)
+    imbalance: float = 1.0
+    plan_rows: list = dataclasses.field(default_factory=list)
+    plan_imbalance: float = 1.0
+    balance_warning: bool = False
+    row_range: list = dataclasses.field(default_factory=list)
+    rows_touched: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class Telemetry:
     """The serving-telemetry report. ``wave_calls`` counts the engine's
     ``knn(..., wave=True)`` calls; ``ooc`` is filled for the out-of-core
-    backends; ``serving`` by
-    :meth:`repro_torch.serve.engine.KnnServeEngine.telemetry`; ``dist``
-    stays ``None`` until the sharded backends are ported."""
+    backends, ``dist`` for ``dist-ooc``; ``serving`` by
+    :meth:`repro_torch.serve.engine.KnnServeEngine.telemetry`."""
     backend: str = ""
     calls: int = 0
     queries: int = 0
@@ -1252,7 +1353,7 @@ class Telemetry:
     paths: PathsTelemetry = dataclasses.field(default_factory=PathsTelemetry)
     pruning: PruningTelemetry = dataclasses.field(default_factory=PruningTelemetry)
     ooc: OocTelemetry | None = None
-    dist: None = None
+    dist: DistTelemetry | None = None
     serving: dict | None = None
 
 
@@ -1331,7 +1432,7 @@ class QueryEngine:
             q = torch.cat([q, q.new_zeros((bucket - q.shape[0], q.shape[1]))])
 
         # plan_signature folds backend identity the SearchConfig cannot see
-        # into the key (none of the ported backends has one yet)
+        # into the key (the sharded backends' shard count and devices)
         key = (cfg, bucket, q.shape[1], str(q.dtype), wave,
                getattr(self.backend, "plan_signature", None))
         plan = self._plans.get(key)
@@ -1402,6 +1503,12 @@ class QueryEngine:
             ooc = OocTelemetry(**{f.name: bstats[f.name]
                                   for f in dataclasses.fields(OocTelemetry)
                                   if f.name in bstats})
+        dist = None
+        if "dist" in bstats:
+            dsec = bstats["dist"]
+            dist = DistTelemetry(**{f.name: dsec[f.name]
+                                    for f in dataclasses.fields(DistTelemetry)
+                                    if f.name in dsec})
         return Telemetry(
             backend=self.backend.name,
             calls=t["calls"],
@@ -1424,7 +1531,7 @@ class QueryEngine:
             pruning=PruningTelemetry(
                 eapca_mean=t["eapca_pr_sum"] / n_stat,
                 sax_mean=t["sax_pr_sum"] / n_stat),
-            ooc=ooc)
+            ooc=ooc, dist=dist)
 
     def stats(self) -> dict:
         return self.backend.stats()
@@ -1456,8 +1563,8 @@ class BackendSpec:
     description: str
 
 
-#: The registry of servable backend names ported so far. Every name-based
-#: entry point resolves through :func:`resolve_backend_name`.
+#: The registry of servable backend names. Every name-based entry point
+#: resolves through :func:`resolve_backend_name`.
 BACKENDS: dict[str, BackendSpec] = {s.name: s for s in (
     BackendSpec("local", ("memory", "disk"),
                 "Hercules index on the device: tree routing + EAPCA/SAX "
@@ -1465,12 +1572,18 @@ BACKENDS: dict[str, BackendSpec] = {s.name: s for s in (
     BackendSpec("scan", ("memory", "disk"),
                 "exact dense scan of the full collection (ED kernels on CUDA)"),
     BackendSpec("scan-mxu", ("memory",), "dense scan in matmul-identity form"),
+    BackendSpec("sharded", ("memory",),
+                "series-sharded index over a list of devices (repeats "
+                "allowed), top-k merged on the first"),
     BackendSpec("ooc-scan", ("disk",),
                 "streamed blocked scan of the on-disk collection under a "
                 "memory budget"),
     BackendSpec("ooc-local", ("disk",),
                 "index-pruned out-of-core answering (stream only unprunable "
                 "leaves/series)"),
+    BackendSpec("dist-ooc", ("disk",),
+                "sharded out-of-core serving: each shard streams its own "
+                "leaf-run row range on its device, top-k merged"),
 )}
 
 
@@ -1493,13 +1606,24 @@ def resolve_backend_name(name: str, *, kind: str) -> BackendSpec:
 
 def make_backend(name: str, data, *, index_config: IndexConfig | None = None,
                  search: SearchConfig | None = None,
+                 num_shards: int | None = None, devices=None,
                  device: str | torch.device | None = None) -> SearchBackend:
     """Build a backend over ``data`` (N, n) by name on ``device`` (default:
     the CUDA device; ``"cpu"`` to serve from the host).
 
     ``local`` builds the Hercules index; ``scan``/``scan-mxu`` serve the raw
-    collection directly."""
+    collection directly; ``sharded`` builds one index a shard: ``devices``
+    (one entry a shard, repeats allowed) or ``num_shards`` shards placed by
+    :func:`~repro_torch.device.shard_devices` (default: one a visible card),
+    each shard's index on its device."""
     resolve_backend_name(name, kind="memory")
+    if name == "sharded":
+        from repro_torch.distributed.search import build_distributed_index
+
+        devs = shard_devices(num_shards, devices, device)
+        cfg = index_config or IndexConfig(search=search or SearchConfig())
+        stacked = build_distributed_index(data, len(devs), cfg, device=devs[0])
+        return ShardedBackend(stacked, devs)
     dev = resolve_device(device)
     if name == "local":
         cfg = index_config or IndexConfig(search=search or SearchConfig())
@@ -1516,6 +1640,7 @@ def make_disk_backend(name: str, store, *,
                       memory_budget_mb: float = 64.0,
                       verify: bool = True,
                       prefetch: str | None = None,
+                      shards: int | None = None, devices=None,
                       device: str | torch.device | None = None) -> SearchBackend:
     """Serve a saved index by backend name on ``device`` (default: the CUDA
     device).
@@ -1528,12 +1653,15 @@ def make_disk_backend(name: str, store, *,
     ``ooc-scan``/``ooc-local`` keep the big files memory-mapped and stream
     them under ``memory_budget_mb``. ``prefetch`` overrides
     ``SearchConfig.prefetch`` (``"thread"``: reader thread + pinned host
-    slots; answers bit-identical to ``"sync"``).
+    slots; answers bit-identical to ``"sync"``). ``dist-ooc`` serves the
+    index from several shards at once, each streaming only its own leaf-run
+    row range: ``devices`` (one entry a shard, repeats allowed) or
+    ``shards`` shards placed by :func:`~repro_torch.device.shard_devices`
+    (default: one a visible card); ``memory_budget_mb`` applies per shard.
     """
     from repro_torch.storage.format import open_index
 
     resolve_backend_name(name, kind="disk")
-    dev = resolve_device(device)
     if isinstance(store, (str, os.PathLike)):
         saved = open_index(os.fspath(store), verify=verify)
     else:
@@ -1545,6 +1673,14 @@ def make_disk_backend(name: str, store, *,
     if prefetch is not None:
         search = dataclasses.replace(search or saved.config.search,
                                      prefetch=prefetch)
+    if name == "dist-ooc":
+        # imported here: core must not depend on repro_torch.distributed at
+        # import time (that package imports this module)
+        from repro_torch.distributed.ooc import DistOutOfCoreBackend
+
+        return DistOutOfCoreBackend(saved, search, memory_budget_mb,
+                                    shards=shards, devices=devices, device=device)
+    dev = resolve_device(device)
     if name == "local":
         idx = saved.to_index(dev)
         if search is not None:

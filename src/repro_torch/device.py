@@ -34,6 +34,31 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def shard_devices(num_shards: int | None = None, devices=None,
+                  device: str | torch.device | None = None) -> list[torch.device]:
+    """The device of every shard of a sharded backend: the port's mesh.
+
+    ``devices`` lists one device per shard, repeats allowed (four shards on
+    one card: ``["cuda:0"] * 4``); with ``num_shards`` too it must have that
+    many entries. Without it, ``num_shards`` shards (default: one a visible
+    card) go round-robin over the visible CUDA devices, or all on the CPU
+    when ``device`` is the CPU (default: one shard)."""
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if not devs or (num_shards is not None and int(num_shards) != len(devs)):
+            raise ValueError(f"{num_shards} shards but {len(devs)} devices: the "
+                             f"device list needs one entry per shard")
+        return devs
+    base = resolve_device(device)
+    count = torch.cuda.device_count() if base.type == "cuda" else 1
+    n = count if num_shards is None else int(num_shards)
+    if n < 1:
+        raise ValueError(f"num_shards={num_shards}; expected >= 1")
+    if base.type == "cpu":
+        return [base] * n
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":

@@ -8,8 +8,13 @@
 
 No mode depends on whether a compiler happens to be installed: a CUDA
 tensor never silently takes the plain version.
+
+:func:`count_launch` is the one place a kernel wrapper adds to its
+``launches`` counter.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -26,3 +31,14 @@ def resolve_kernel_mode(mode: str, device: torch.device) -> str:
         raise ValueError(
             f"kernel_mode='cuda' needs CUDA tensors; got tensors on {device}")
     return "cuda" if device.type == "cuda" else "ref"
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under one lock shared by every
+    kernel wrapper: shard threads launch the same kernels at once, and a
+    bare ``+=`` (read, add, store) can lose a count between threads."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1

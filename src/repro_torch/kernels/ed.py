@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.compat import count_launch
 
 _SERIES_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -47,7 +48,7 @@ def ed_matrix(queries: torch.Tensor, series: torch.Tensor) -> torch.Tensor:
     err = fn(queries.data_ptr(), series.data_ptr(), out.data_ptr(), qn, num, n,
              torch.cuda.current_stream(queries.device).cuda_stream)
     _build.check(err, "ed_matrix")
-    ed_matrix.launches += 1
+    count_launch(ed_matrix)
     return out
 
 
@@ -72,7 +73,7 @@ def ed_min(queries: torch.Tensor, series: torch.Tensor,
              dmin.data_ptr(), amin.data_ptr(), qn, num, n, valid,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ed_min")
-    ed_min.launches += 1
+    count_launch(ed_min)
     return dmin, amin
 
 
@@ -118,7 +119,7 @@ def decode_bf16_ed_matrix(queries: torch.Tensor,
             sn.data_ptr(), qn, num, n,
             torch.cuda.current_stream(queries.device).cuda_stream)
         _build.check(err, "decode_bf16_ed_matrix")
-        decode_bf16_ed_matrix.launches += 1
+        count_launch(decode_bf16_ed_matrix)
     return out, sn
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import summaries as S
 from repro_torch.kernels import _build
+from repro_torch.kernels.compat import count_launch
 
 SUPPORTED_SEGMENTS = (8, 16)
 
@@ -63,7 +64,7 @@ def lb_sax_matrix(q_paa: torch.Tensor, codes: torch.Tensor, series_len: int,
         out.data_ptr(), qn, num, m, alphabet, series_len / m,
         torch.cuda.current_stream(q_paa.device).cuda_stream)
     _build.check(err, "lb_sax_matrix")
-    lb_sax_matrix.launches += 1
+    count_launch(lb_sax_matrix)
     return out
 
 

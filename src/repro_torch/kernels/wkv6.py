@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.compat import count_launch
 
 MAX_HEAD = 64                   # K and V bound (registers per state column)
 _ENTRY = {torch.float32: "wkv6_f32", torch.bfloat16: "wkv6_bf16"}
@@ -56,7 +57,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         err = entry(*(x.data_ptr() for x in ins), out.data_ptr(), s_out.data_ptr(),
                     b, t, h, dk, dv, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "wkv6")
-        wkv6.launches += 1
+        count_launch(wkv6)
     return out, s_out
 
 

@@ -29,6 +29,10 @@ device unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.build_index query \\
         --index idx --backend ooc-scan --memory-budget-mb 0.5 --verify exact
 
+    # sharded out-of-core serving: 4 shards, each streaming its own rows
+    PYTHONPATH=src python -m repro_torch.launch.build_index query \\
+        --index idx --backend dist-ooc --shards 4 --verify parity
+
 Synthetic data is recorded as ``{"kind": "synthetic-torch", "seed", "num",
 "length"}`` and regenerated from it by ``repro_torch.data.random_walks``
 (the same bits on the CPU and the card). Any other provenance, such as the
@@ -50,10 +54,11 @@ from repro_torch.api import (ArrayChunkSource, AsyncChunkReader, BuildConfig,
                              LocalBackend, NpyChunkSource, QueryEngine,
                              ScanBackend, SearchConfig, backend_names,
                              brute_force_knn, build_index_to_disk,
-                             list_codecs, make_disk_backend, open_index)
+                             list_codecs, make_backend, make_disk_backend,
+                             open_index)
 from repro_torch.core.engine import _OutOfCoreBase
 from repro_torch.data.synthetic import make_query_workload, random_walks
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, shard_devices
 from repro_torch.storage.format import journal_of
 
 SYNTHETIC_KIND = "synthetic-torch"
@@ -216,6 +221,8 @@ def cmd_query(args) -> None:
         data = _regenerate(saved)
         num_series, series_len = saved.num_series, saved.series_len
         codec, cfg = saved.codec, saved.config
+        # the collection as the index file holds it, for the sharded parity leg
+        stored = saved.original_data() if args.verify == "parity" else None
     if pending:
         # the disk backends serve the committed base; _regenerate (and the
         # in-memory reference backends) would cover base + journal
@@ -236,7 +243,7 @@ def cmd_query(args) -> None:
                   "memory_budget_mb": args.memory_budget_mb,
                   "prefetch": args.prefetch or cfg.search.prefetch}
 
-    streams = "ooc" in args.backend   # ooc-scan | ooc-local
+    streams = "ooc" in args.backend   # ooc-scan | ooc-local | dist-ooc
     if streams:
         rows["stream_rows"] = _OutOfCoreBase.budget_stream_rows(
             args.memory_budget_mb, series_len)
@@ -244,7 +251,8 @@ def cmd_query(args) -> None:
     t0 = time.perf_counter()
     backend = make_disk_backend(args.backend, args.index,
                                 memory_budget_mb=args.memory_budget_mb,
-                                prefetch=args.prefetch, device=dev)
+                                prefetch=args.prefetch, shards=args.shards,
+                                device=dev)
     rows["load_seconds"] = round(time.perf_counter() - t0, 3)
     if args.backend == "ooc-scan":
         # a scan_block too large for the budget is shrunk by the backend
@@ -272,13 +280,26 @@ def cmd_query(args) -> None:
             print(f"codec {codec}: streamed {st['bytes_streamed']} bytes "
                   f"({st['codec_refine_rows']} candidate rows re-checked at "
                   f"float32, {st['codec_fallbacks']} fallbacks)")
+        if args.backend == "dist-ooc":
+            ds = st["dist"]
+            rows["dist"] = ds
+            print(f"dist-ooc: {ds['shards']} shards streamed "
+                  f"{ds['rows_streamed']} rows (imbalance "
+                  f"{ds['imbalance']:.2f}, plan {ds['plan_imbalance']:.2f})")
+            for rng_, touched in zip(ds["row_range"], ds["rows_touched"]):
+                if touched is not None and not (
+                        rng_[0] <= touched[0] and touched[1] <= rng_[1]):
+                    raise SystemExit(
+                        f"dist-ooc: shard reader touched rows {touched} "
+                        f"outside its assigned range {rng_}")
+            print("dist-ooc: every shard reader stayed inside its row range")
         if args.prefetch == "thread" and args.verify != "none":
             # the threaded reader's answers equal the synchronous reader's
             # on the same backend and budget
             sync_be = make_disk_backend(
                 args.backend, args.index,
                 memory_budget_mb=args.memory_budget_mb, prefetch="sync",
-                device=dev)
+                shards=args.shards, device=dev)
             _assert_same(f"{args.backend} prefetch thread==sync",
                          res, sync_be.knn(queries, k=k))
     _assert_readers_joined()
@@ -292,6 +313,13 @@ def cmd_query(args) -> None:
         disk_scan = make_disk_backend("scan", args.index, device=dev)
         _assert_same("scan", disk_scan.knn(queries, k=k),
                      mem_scan.knn(queries, k=k))
+        shards = args.shards or len(shard_devices(device=dev))
+        if num_series % shards == 0:
+            mem_sh, disk_sh = (make_backend("sharded", x, index_config=cfg,
+                                            num_shards=shards, device=dev)
+                               for x in (data, stored))
+            _assert_same(f"sharded (shards={shards})", disk_sh.knn(queries, k=k),
+                         mem_sh.knn(queries, k=k))
         rows["parity"] = "bit-identical"
     elif args.verify == "exact":
         bf_d, _ = brute_force_knn(torch.from_numpy(data).to(dev),
@@ -377,6 +405,10 @@ def main(argv=None) -> None:
                    help="ooc read scheduling override (default: the saved "
                         "config's). thread also asserts bit-parity against "
                         "the sync reader when --verify is set")
+    q.add_argument("--shards", type=int, default=None,
+                   help="shard count of --backend dist-ooc and of the sharded "
+                        "--verify parity leg (default: one a visible card, "
+                        "one on the CPU; several shards may share a card)")
     q.add_argument("--verify", choices=("none", "parity", "exact"),
                    default="none")
     q.add_argument("--json", default=None)

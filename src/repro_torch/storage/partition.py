@@ -2,8 +2,8 @@
 
 Port of ``repro/storage/partition.py`` (numpy only, re-implemented so the
 port imports nothing of the reference). The port writes the same
-``partition`` manifest section as the reference; the sharded backend that
-serves by these plans comes with a later slice.
+``partition`` manifest section as the reference, and
+``repro_torch.distributed.ooc`` serves by these plans.
 
 A *shard plan* cuts the committed base generation into ``num_shards``
 contiguous **leaf runs** (leaf in-order == file order, so a leaf range is a

@@ -500,14 +500,17 @@ class Hercules:
                search: SearchConfig | None = None,
                memory_budget_mb: float = 64.0,
                engine_config=None,
-               prefetch: str | None = None) -> QueryEngine:
+               prefetch: str | None = None,
+               shards: int | None = None) -> QueryEngine:
         """A :class:`QueryEngine` over the base index on the handle's
         device, cached per configuration. Serves the **base** only: use
         :meth:`query` to also see journal rows pending compaction.
         ``append``/``compact`` invalidate every cached engine, and the next
         call builds a fresh one over the new store state. ``prefetch``
         overrides ``SearchConfig.prefetch`` for the out-of-core backends
-        (answers bit-identical either way)."""
+        (answers bit-identical either way). ``shards`` picks the shard
+        count of ``backend="dist-ooc"`` (default: one a visible card, one
+        on the CPU; the budget then applies per shard)."""
         self._require_open()
         if self.saved is None:
             raise IndexFormatError(
@@ -523,23 +526,25 @@ class Hercules:
         # the key otherwise, so budget variants do not duplicate an already
         # materialized local/scan backend
         budget = float(memory_budget_mb) if "ooc" in spec.name else None
-        key = (backend, search, budget, engine_config)
+        key = (backend, search, budget, engine_config,
+               shards if backend == "dist-ooc" else None)
         eng = self._engines.get(key)
         if eng is None:
             be = make_disk_backend(backend, self, search=search,
                                    memory_budget_mb=memory_budget_mb,
-                                   device=self.device)
+                                   shards=shards, device=self.device)
             eng = QueryEngine(be, engine_config)
             self._engines[key] = eng
         return eng
 
     def query(self, queries, k: int | None = None, *,
               backend: str = "local", search: SearchConfig | None = None,
-              memory_budget_mb: float = 64.0, **overrides: Any) -> KnnResult:
+              memory_budget_mb: float = 64.0, shards: int | None = None,
+              **overrides: Any) -> KnnResult:
         """Exact kNN over the *whole* store: the base index through the
         named backend plus an exact merge of any journal rows still pending
         compaction (the same difference-form arithmetic, ids continuing the
-        collection, positions -1)."""
+        collection, positions -1). ``shards`` as in :meth:`engine`."""
         self._require_open()
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         if q.ndim == 1:
@@ -547,7 +552,7 @@ class Hercules:
         if self.saved is None:
             return self._journal_only_knn(q, k, search, overrides)
         eng = self.engine(backend, search=search,
-                          memory_budget_mb=memory_budget_mb)
+                          memory_budget_mb=memory_budget_mb, shards=shards)
         res = eng.knn(q, k=k, **overrides)
         if self.pending_rows:
             res = self._merge_journal(res, q, res.dists.shape[1])

@@ -1,7 +1,8 @@
 """The port's query engine, entry points and package isolation.
 
-On the CPU every backend takes the plain arithmetic: ``local`` and ``scan``
-answer with bit-identical distances (the same difference-form sums), and
+On the CPU every backend takes the plain arithmetic: ``local``, ``scan``
+and ``sharded`` answer with bit-identical distances (the same
+difference-form sums), and
 ``scan-mxu`` (matmul identity, float32) with the same ids and distances
 within ``rtol=atol=1e-4``. The JAX package's engine is the reference for
 ids.
@@ -44,7 +45,8 @@ def setup():
     q = np.concatenate([q, walks(6, 3, 64)])
     icfg = IndexConfig(build=BuildConfig(leaf_capacity=64),
                        search=SearchConfig(chunk=128, scan_block=256))
-    backends = {name: E.make_backend(name, data, index_config=icfg, device="cpu")
+    backends = {name: E.make_backend(name, data, index_config=icfg, device="cpu",
+                                     **({"num_shards": 2} if name == "sharded" else {}))
                 for name in E.backend_names("memory")}
     return data, q, icfg, backends
 
@@ -55,6 +57,10 @@ def test_backends_agree(setup, k):
     res = {name: E.QueryEngine(b).knn(q, k=k) for name, b in backends.items()}
     assert torch.equal(res["local"].ids, res["scan"].ids.to(res["local"].ids.dtype))
     assert torch.equal(res["local"].dists, res["scan"].dists)
+    # two shards: the same neighbours, the same sums, positions unknown (-1)
+    assert torch.equal(res["sharded"].ids, res["local"].ids)
+    assert torch.equal(res["sharded"].dists, res["local"].dists)
+    assert bool((res["sharded"].positions == -1).all())
     assert torch.equal(res["scan-mxu"].ids.long(), res["scan"].ids.long())
     np.testing.assert_allclose(res["scan-mxu"].dists.numpy(), res["scan"].dists.numpy(),
                                rtol=1e-4, atol=1e-4)
@@ -126,8 +132,11 @@ def test_scan_backend_arithmetic_selection(setup):
     assert backends["scan-mxu"].describe()["mxu"] is True
     d, p = E.dense_scan_knn(torch.from_numpy(data[:3]), qq, k=5)
     assert bool((p[:, 3:] == -1).all()) and bool(torch.isinf(d[:, 3:]).all())
-    with pytest.raises(ValueError, match="unknown backend"):
-        E.make_backend("sharded", data, device="cpu")
+    # sharding is registered: its name builds, and a collection that does
+    # not split evenly raises the reference's error
+    assert backends["sharded"].describe()["num_shards"] == 2
+    with pytest.raises(ValueError, match="not divisible into 3 shards"):
+        E.make_backend("sharded", data, num_shards=3, device="cpu")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

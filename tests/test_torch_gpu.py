@@ -1,8 +1,8 @@
 """The port on a CUDA card: each hand-written kernel against its plain
 version, the pinned-slot reader, and the card's build and answers
-(in memory, out of core, through the wave plans, and through the store:
-append, query with the journal merged, compact) and RWKV-6 logits and
-tokens against the CPU's.
+(in memory, out of core, through the wave plans, sharded four ways on one
+card, and through the store: append, query with the journal merged,
+compact) and RWKV-6 logits and tokens against the CPU's.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -479,6 +479,68 @@ def test_wave_on_the_card_equals_cpu(cuda, tmp_path, codec):
             assert torch.equal(wg.dists, solo.dists)
             assert torch.equal(torch.sort(wg.ids.long(), 1).values,
                                torch.sort(solo.ids.long(), 1).values)
+
+
+def test_sharded_four_shards_on_one_card(cuda):
+    """``sharded`` with 4 shards on one card answers as the card's ``local``
+    and as the CPU's 4 shards, bit for bit."""
+    data = walks(14, 4096, 64)
+    rng = np.random.default_rng(15)
+    q = (data[rng.integers(0, 4096, 12)]
+         + rng.standard_normal((12, 64)) * np.sqrt(0.05)).astype(np.float32)
+    icfg = IndexConfig(build=TT.BuildConfig(leaf_capacity=64),
+                       search=SearchConfig(chunk=128, scan_block=256))
+    local = E.make_backend("local", data, index_config=icfg)
+    sharded = E.make_backend("sharded", data, index_config=icfg, devices=[cuda] * 4)
+    on_cpu = E.make_backend("sharded", data, index_config=icfg, num_shards=4,
+                            device="cpu")
+    assert sharded.plan_signature[2] == (str(cuda),) * 4
+    for k in (1, 5):
+        before = klb.lb_sax_matrix.launches
+        g = E.QueryEngine(sharded).knn(q, k=k)
+        assert klb.lb_sax_matrix.launches - before == 4 * 16    # 4 shards x bucket
+        want = local.knn(q, k=k)
+        assert torch.equal(g.dists, want.dists) and torch.equal(g.ids, want.ids)
+        c = on_cpu.knn(q, k=k)
+        assert torch.equal(g.dists.cpu(), c.dists) and torch.equal(g.ids.cpu(), c.ids)
+
+
+@pytest.mark.parametrize("codec", ["raw", "bf16"])
+def test_dist_ooc_four_shards_on_one_card(cuda, tmp_path, codec):
+    """``dist-ooc`` with 4 shards on one card (a thread and a CUDA stream a
+    shard) answers as the card's ``ooc-local`` bit for bit, with either
+    reader and wave flag, its readers stay in their row ranges, and every
+    launch from the shard threads is counted: under bf16 one
+    ``decode_bf16_ed_matrix`` launch a streamed block."""
+    data = walks(16, 4096, 64)
+    rng = np.random.default_rng(17)
+    q = (data[rng.integers(0, 4096, 12)]
+         + rng.standard_normal((12, 64)) * np.sqrt(0.05)).astype(np.float32)
+    icfg = IndexConfig(build=TT.BuildConfig(leaf_capacity=64),
+                       search=SearchConfig(l_max=2, chunk=128, scan_block=256))
+    path = str(tmp_path / "idx")
+    build_index_to_disk(TP.ArrayChunkSource(data, 1000), path, icfg, codec=codec,
+                        device=cuda)
+    ooc = E.make_disk_backend("ooc-local", path, memory_budget_mb=0.25)
+    for prefetch in ("sync", "thread"):
+        dist = E.make_disk_backend("dist-ooc", path, memory_budget_mb=0.25,
+                                   prefetch=prefetch, devices=[cuda] * 4)
+        eng = E.QueryEngine(dist)
+        for k in (1, 5):
+            want = ooc.knn(q, k=k)
+            for wave in (False, True):
+                blocks = dist.stats()["blocks"]
+                before = ked.decode_bf16_ed_matrix.launches
+                got = eng.knn(q, k=k, wave=wave)
+                for f in ("dists", "positions", "ids"):
+                    assert torch.equal(getattr(got, f), getattr(want, f)), (prefetch, k, f)
+                if codec == "bf16" and dist.stats()["codec_fallbacks"] == 0:
+                    assert (ked.decode_bf16_ed_matrix.launches - before
+                            == dist.stats()["blocks"] - blocks)
+        d = eng.telemetry().dist
+        assert d.shards == 4 and min(d.rows_streamed) > 0
+        for (lo, hi), (tlo, thi) in zip(d.row_range, d.rows_touched):
+            assert lo <= tlo and thi <= hi
 
 
 @pytest.mark.parametrize("codec", ["raw", "bf16"])

@@ -181,11 +181,16 @@ def test_budget_rules_and_registry(dirs, queries, memory):
                                     device="cpu").knn(queries)
         with pytest.raises(ValueError, match="positive"):
             E.OutOfCoreScanBackend(saved, memory_budget_mb=0, device="cpu")
-    assert E.backend_names("disk") == ("local", "scan", "ooc-scan", "ooc-local")
-    assert E.backend_names("memory") == ("local", "scan", "scan-mxu")
+    # the registry in the reference's order, the sharded names included
+    assert E.backend_names("disk") == ("local", "scan", "ooc-scan", "ooc-local",
+                                       "dist-ooc")
+    assert E.backend_names("memory") == ("local", "scan", "scan-mxu", "sharded")
     assert E.resolve_backend_name("ooc-local", kind="disk").kinds == ("disk",)
-    with pytest.raises(ValueError, match="unknown backend"):
-        E.make_disk_backend("dist-ooc", dirs["raw"], device="cpu")
+    with pytest.raises(ValueError, match="unknown backend 'sharded'"):
+        E.make_disk_backend("sharded", dirs["raw"], device="cpu")
+    dist = E.make_disk_backend("dist-ooc", dirs["raw"], search=SEARCH,
+                               memory_budget_mb=BUDGET_MB, shards=2, device="cpu")
+    assert torch.equal(dist.knn(queries).dists, memory["local"].knn(queries).dists)
     with pytest.raises(ValueError, match="unknown backend"):
         E.make_backend("ooc-scan", np.zeros((4, 64), np.float32), device="cpu")
 

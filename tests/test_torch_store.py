@@ -272,9 +272,15 @@ class TestAppendValidation:
         with pytest.raises(ValueError, match="mode"):
             Hercules.open(compacted_dir, "w", device=CPU)
         with Hercules.open(compacted_dir, device=CPU) as hx:
-            # the registry's message; sharded names come with sharding
-            with pytest.raises(ValueError, match="unknown backend 'dist-ooc'"):
-                hx.engine("dist-ooc")
+            # the registry's message for a name it does not hold
+            with pytest.raises(ValueError, match="unknown backend 'sharded'"):
+                hx.engine("sharded")
+            # dist-ooc is registered: two shards answer as ooc-local does
+            q = np.asarray(hx.saved.original_data()[:4]) + np.float32(0.01)
+            want = hx.engine("ooc-local").knn(q, k=3)
+            got = hx.engine("dist-ooc", shards=2).knn(q, k=3)
+            for field in ("dists", "positions", "ids"):
+                assert torch.equal(getattr(got, field), getattr(want, field)), field
 
 
 class TestCrashSafety:
