@@ -29,6 +29,13 @@ Phases (any failure ends the run with a non-zero exit):
    and bf16 streams, k=1 and k=10, with the threaded reader (and once with
    the synchronous one); every answer is held against phase 4's in-memory
    answers bit for bit, and every kernel of the path must have launched;
+5b. the runtime sanitizer on that store: a fresh read-only handle opened
+   under ``REPRO_SANITIZE=1`` (memory maps in use-after-close guards; the
+   threaded reader poisoning each recycled pinned slot and checking every
+   staged block, after its copy event, against a host snapshot) answers
+   phase 5's ``ooc-local`` raw k=1 call equal in every field, raising no
+   ``SanitizerError``; after ``close()`` a read of its ``lrd`` must raise
+   ``UseAfterCloseError``;
 6. the wave plans and kNN serving on phase 4's ``local`` backend and phase
    5's store engines: ``knn(..., wave=True)`` at k=1 and k=10 over the 100
    queries (bucket 128) on ``local`` (``wave_knn``: exactly one
@@ -64,6 +71,15 @@ Phases (any failure ends the run with a non-zero exit):
    5's ``ooc-local`` time for the same stream and k;
    ``decode_bf16_ed_matrix`` and ``lb_sax_matrix`` must launch in this
    phase;
+7b. exact DTW kNN on phase 4's in-memory index (before the journal):
+   ``dtw_knn`` over phase 4's first 16 queries at band 13 (a 5% warping
+   window of n = 256, the UCR-Suite convention), k=1 and k=10, its rounds,
+   chunks and rows refined and its ``dtw_band`` launches logged, held
+   against a brute-force ``dtw_band`` over every row with a stable top-k
+   (dists bit-identical, positions equal); ``dtw_band`` bit for bit equal
+   to its plain version ``dtw_band_ref`` on the card at 1 query x 4,096
+   rows and at a refinement round (16 x 256); host-loop and CUDA-graph
+   times at those shapes and at the brute force's (1 x every row);
 8. the store's mutation path on that store: two journal segments of 1/32
    of the base each (2 x 131,072 rows at the full size) appended in chunks
    of 65,536 and 8,192 rows, each append invalidating the store's cached
@@ -95,7 +111,8 @@ Phases (any failure ends the run with a non-zero exit):
    and ``ed_matrix`` held bit for bit to the exact fma references at both
    of ``ed_min``'s shapes and at 131,072 rows, and the ED witness;
 10. the card's answers against the CPU's on a small input (the CPU path is
-   the one the test suite holds against the JAX reference);
+   the one the test suite holds against the JAX reference), ``dtw_knn``'s
+   (k=3, band 13) bit for bit;
 11. ``wkv6`` against its plain version and, bit for bit, against the exact
    fma reference ``wkv6_fma_ref``: the LM path's prefill shape (B=4,
    T=512, H=64, K=V=64) with a nonzero state, the decode shape (T=1), bf16
@@ -113,7 +130,8 @@ Phases (any failure ends the run with a non-zero exit):
    64-token prefill and 4 decode steps, logits within 1e-4, equal tokens.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
-``device_ms``, a CUDA graph's time); then the card's ``nvidia-smi`` name
+``device_ms``, a CUDA graph's time; the ``dtw_band`` row from phase 7b at
+1 x 4,096, its other shapes in the summary); then the card's ``nvidia-smi`` name
 and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -414,7 +432,8 @@ def phase_adversarial():
 
 
 def reset_counters():
-    from repro_torch.kernels import ed as ked, lb_sax as klb, wkv6 as kwkv
+    from repro_torch.kernels import dtw as kdtw, ed as ked, lb_sax as klb, wkv6 as kwkv
+    kdtw.dtw_band.launches = 0
     klb.lb_sax_matrix.launches = 0
     ked.ed_matrix.launches = 0
     ked.ed_min.launches = 0
@@ -647,6 +666,9 @@ def phase_disk(data, queries, local, answers, root: str, profile: bool = False):
                                  "codec_fallbacks": t.codec_fallbacks,
                                  "launches": {key: after[key] - before[key]
                                               for key in after}}
+        if (name, codec, k, prefetch) == ("ooc-local", "raw", 1, "thread"):
+            # phase 5b holds the sanitized call to this one
+            answers[("ooc-local raw", 1)] = res
         want = answers[("local" if name == "ooc-local" else "scan", k)]
         check(torch.equal(res.dists, want.dists),
               f"{tag}: dists are not bit-identical to the in-memory "
@@ -694,6 +716,60 @@ def phase_disk(data, queries, local, answers, root: str, profile: bool = False):
     lsd = torch.from_numpy(np.array(saved._mapped("lsd")[:rows])).cuda()
     lrd = torch.from_numpy(np.array(saved._mapped("lrd")[:rows])).cuda()
     return launches, (enc, lsd, lrd), summary, hx
+
+
+def phase_sanitize(hx, queries, answers, disk):
+    """The runtime sanitizer on phase 5's store: a fresh read-only handle
+    opened under ``REPRO_SANITIZE=1`` (its maps wrapped in ``MmapGuard``s,
+    its readers poisoning each recycled pinned slot and checking every
+    staged block against a snapshot) answers phase 5's ``ooc-local`` raw
+    k=1 call with the threaded reader, equal in every field and raising no
+    ``SanitizerError``; after ``close()`` a read of its ``lrd`` raises
+    ``UseAfterCloseError``. Returns the phase's summary."""
+    import torch
+    from repro_torch.analysis import sanitize
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.storage import Hercules
+
+    prev = os.environ.get(sanitize.ENV_VAR)
+    os.environ[sanitize.ENV_VAR] = "1"
+    try:
+        sx = Hercules.open(hx.path, "r", verify=False)
+        try:
+            check(isinstance(sx.saved.lrd, sanitize.MmapGuard),
+                  "[sanitize] the store's lrd is not guarded under REPRO_SANITIZE=1")
+            eng = sx.engine("ooc-local", search=SearchConfig(codec="raw", prefetch="thread"),
+                            memory_budget_mb=DISK_BUDGET_MB)
+            t0 = time.perf_counter()
+            res = eng.knn(queries, k=1)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            blocks = eng.telemetry().ooc.blocks
+            escaped = sx.saved.lrd
+        finally:
+            sx.close()
+    finally:
+        if prev is None:
+            os.environ.pop(sanitize.ENV_VAR)
+        else:
+            os.environ[sanitize.ENV_VAR] = prev
+    want = answers[("ooc-local raw", 1)]
+    for field in want._fields:
+        check(torch.equal(getattr(res, field), getattr(want, field)),
+              f"[sanitize] ooc-local raw k=1 under REPRO_SANITIZE=1: {field} differs "
+              f"from phase 5's answers")
+    try:
+        escaped[0]
+    except sanitize.UseAfterCloseError as e:
+        log(f"[sanitize] reading the closed store's lrd raises UseAfterCloseError: {e}")
+    else:
+        fail("[sanitize] reading the closed store's lrd did not raise UseAfterCloseError")
+    ms = 1e3 * dt / len(queries)
+    before = disk["calls"]["ooc-local raw k=1 thread"]["ms_per_query"]
+    log(f"[sanitize] ooc-local raw k=1 under REPRO_SANITIZE=1 (fresh handle, threaded "
+        f"reader, {blocks} blocks staged and checked): {ms:.3f} ms/query, against "
+        f"{before:.3f} in phase 5; answers equal in every field")
+    return {"ms_per_query": ms, "phase5_ms_per_query": before, "blocks": blocks}
 
 
 # the serving runs: 255 valid requests and 1 of the wrong length over each
@@ -1110,6 +1186,132 @@ def phase_shards(data, queries, local, answers, hx, summary):
     for kname in ("lb_sax_matrix", "decode_bf16_ed_matrix"):
         check(launches[kname] > 0, f"shards phase: {kname} was never launched")
     return out
+
+
+DTW_QUERIES = 16                # phase 4's first queries
+DTW_BAND = 13                   # a 5% warping window of n = 256 (UCR-Suite's convention)
+DTW_KS = (1, 10)
+DTW_BITS_ROWS = 4096            # the kernel-vs-plain shape: 1 query x 4,096 rows
+
+
+def dtw_cost(pairs: int, n: int, band: int) -> tuple[int, int]:
+    """(bytes, operations) of ``pairs`` banded-DTW pairs of length ``n``:
+    each candidate row read once and each distance written once, and ~5
+    FP32 operations (subtract, multiply, two minima, add) a band cell."""
+    band = min(band, n - 1)
+    cells = n * (2 * band + 1) - band * (band + 1)
+    return pairs * (n + 1) * 4, 5 * pairs * cells
+
+
+def words32(x):
+    import torch
+    return x.contiguous().view(torch.int32)
+
+
+def phase_dtw(queries, local):
+    """Exact banded-DTW kNN on phase 4's in-memory index (before the
+    journal): ``dtw_knn`` over the first ``DTW_QUERIES`` queries at band
+    ``DTW_BAND``, k = 1 and 10, held against a brute-force ``dtw_band`` over
+    every row with a stable top-k (dists bit-identical, positions equal);
+    ``dtw_band`` held bit for bit to ``dtw_band_ref`` on the card at 1 query
+    x 4,096 rows; both times at that shape, at the brute force's (1 query x
+    every row) and at a refinement round's (the queries x one chunk).
+    Returns (the kernels line's row, the other shapes' rows, summary)."""
+    import torch
+    from repro_torch.core.dtw import dtw_knn
+    from repro_torch.kernels import dtw as kdtw, ref
+
+    layout = local.index.layout
+    q = queries[:DTW_QUERIES]
+    num, n = layout.num_series, layout.series_len
+    chunk = 256                 # dtw_knn's default refinement chunk
+    out: dict = {"band": DTW_BAND, "queries": int(q.shape[0]), "calls": {}}
+    answers = {}
+    kdtw.dtw_band.launches = 0
+    for k in DTW_KS:
+        stats: dict = {}
+        before = kdtw.dtw_band.launches
+        t0 = time.perf_counter()
+        d, p = dtw_knn(layout, q, k=k, band=DTW_BAND, stats=stats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = kdtw.dtw_band.launches - before
+        check(launched == stats["rounds"] and launched > 0,
+              f"[dtw] k={k}: {launched} dtw_band launches for {stats['rounds']} rounds")
+        answers[k] = (d, p)
+        out["calls"][f"k={k}"] = {"s": dt, "ms_per_query": 1e3 * dt / q.shape[0],
+                                  "launches": launched, **stats}
+        log(f"[dtw] dtw_knn k={k}, band {DTW_BAND}, {q.shape[0]} queries over {num} rows: "
+            f"{dt:.3f}s ({1e3 * dt / q.shape[0]:.3f} ms/query); {stats['rounds']} rounds "
+            f"(dtw_band launches {launched}), {stats['chunks']} chunks of {chunk} refined, "
+            f"{stats['rows']} rows ({stats['rows'] / (q.shape[0] * num):.4%} of the rows a "
+            f"query)")
+    launches = kdtw.dtw_band.launches
+    out["launches"] = launches
+
+    # the brute force: every real row, one launch a query, a stable top-k
+    rows = layout.lrd[:num]
+    t0 = time.perf_counter()
+    full = torch.stack([kdtw.dtw_band(qq, rows, DTW_BAND) for qq in q])
+    vals, idx = torch.sort(full, dim=1, stable=True)
+    torch.cuda.synchronize()
+    out["brute_force_s"] = time.perf_counter() - t0
+    del full
+    for k in DTW_KS:
+        d, p = answers[k]
+        bad_d = int((words32(d) != words32(vals[:, :k])).sum())
+        bad_p = int((p.long() != idx[:, :k]).sum())
+        check(bad_d == 0 and bad_p == 0,
+              f"[dtw] k={k}: {bad_d} dists and {bad_p} positions differ from the "
+              f"brute-force dtw_band")
+    log(f"[dtw] dtw_knn at k={DTW_KS}: dists bit-identical to a brute-force dtw_band over "
+        f"all {num} rows (stable top-k, {out['brute_force_s']:.2f}s), positions equal")
+    del vals, idx
+
+    # the kernel against its plain version, bit for bit, then its times
+    a, cands = q[0], rows[:DTW_BITS_ROWS]
+    got = kdtw.dtw_band(a, cands, DTW_BAND)
+    want = ref.dtw_band_ref(a, cands, DTW_BAND)
+    bad = int((words32(got) != words32(want)).sum())
+    check(bad == 0, f"[dtw] dtw_band: {bad} of {DTW_BITS_ROWS} distances differ from "
+                    f"dtw_band_ref on the card")
+    err = float((got - want).abs().max())
+    qn = q.shape[0]
+    rnd = rows[:qn * chunk].reshape(qn, chunk, n)
+    bad = int((words32(kdtw.dtw_band(q, rnd, DTW_BAND))
+               != words32(ref.dtw_band_ref(q, rnd, DTW_BAND))).sum())
+    check(bad == 0, f"[dtw] dtw_band: {bad} distances of a {qn} x {chunk} round differ "
+                    f"from dtw_band_ref on the card")
+    log(f"[dtw] dtw_band equals dtw_band_ref bit for bit at 1 x {DTW_BITS_ROWS} x {n} and "
+        f"at a refinement round's {qn} x {chunk} x {n}, band {DTW_BAND}")
+    shapes = []
+    # (query, candidates, shape, host-loop and graph reps, plain reps,
+    # launches at the shape in dtw_knn): the bits' shape, a refinement
+    # round's (every query a chunk; rounds with fewer queries left launch
+    # smaller) and the brute force's (a query against every row; its plain
+    # version is not timed)
+    for qa, ca, shape, reps, plain_reps, per_run in (
+            (a, cands, [1, DTW_BITS_ROWS, n], (50, 100), 3, 0),
+            (q, rnd, [qn, chunk, n], (50, 100), 3, launches),
+            (a, rows, [1, num, n], (3, 3), 0, 0)):
+        run = lambda qa=qa, ca=ca: kdtw.dtw_band(qa, ca, DTW_BAND)
+        nbytes, ops = dtw_cost(shape[0] * shape[1], n, DTW_BAND)
+        r = dict(name="dtw_band", route="cuda", source="src/repro_torch/kernels/csrc/dtw.cu",
+                 replaces="src/repro/core/dtw.py:53 (dtw_distance; reference code "
+                          "outside Pallas, no TPU kernel)",
+                 shape=shape, launches=launches, max_abs_err=err,
+                 ms=time_ms(run, reps=reps[0], warmup=2),
+                 device_ms=device_ms(run, reps=reps[1]),
+                 plain_ms=(time_ms(lambda qa=qa, ca=ca: ref.dtw_band_ref(qa, ca, DTW_BAND),
+                                   reps=plain_reps) if plain_reps else None),
+                 library_ms=None, bytes=nbytes, ops=ops, launches_per_run=per_run)
+        _bound(r)
+        log_timing(r)
+        shapes.append(r)
+    row = shapes.pop(0)
+    out["shapes"] = [{k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms")}
+                     for r in [row] + shapes]
+    return row, shapes, out
 
 
 def journal_rows(num: int) -> int:
@@ -1632,8 +1834,9 @@ def ed_min_row(qb, series, launches: int, err: float, reps: int, device_reps: in
 def log_timing(r: dict) -> None:
     dev = f" (device {r['device_ms']:.4f} ms)" if "device_ms" in r else ""
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    plain = "not measured" if r["plain_ms"] is None else f"{r['plain_ms']:.4f} ms"
     log(f"[timing] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms{dev}, plain "
-        f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+        f"{plain}, library {lib}, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}: {r['bytes']} B, {r['ops']} ops); the kernel at "
         f"{r['bound_ms'] / r['ms']:.1%} of the bound")
 
@@ -1691,6 +1894,7 @@ def phase_cpu_agreement():
     the index (same arithmetic on both devices) and by ids for the scans."""
     import numpy as np
     import torch
+    from repro_torch.core.dtw import dtw_knn
     from repro_torch.core.engine import QueryEngine, make_backend
     from repro_torch.core.index import IndexConfig
     from repro_torch.core.search import SearchConfig
@@ -1703,12 +1907,14 @@ def phase_cpu_agreement():
          + rng.standard_normal((16, 256)) * np.sqrt(0.05)).astype(np.float32)
     icfg = IndexConfig(build=BuildConfig(leaf_capacity=256),
                        search=SearchConfig(chunk=256, scan_block=1024))
-    res, trees = {}, {}
+    res, trees, dtw = {}, {}, {}
     for dev in ("cpu", "cuda"):
         for name in ("local", "scan"):
             backend = make_backend(name, x, index_config=icfg, device=dev)
             if name == "local":
                 trees[dev] = backend.index.tree
+                dtw[dev] = dtw_knn(backend.index.layout, torch.from_numpy(q), k=3,
+                                   band=DTW_BAND)
             eng = QueryEngine(backend)
             res[(dev, name)] = [eng.knn(q, k=k) for k in (1, 5)]
     for field in trees["cpu"]._fields:
@@ -1721,9 +1927,13 @@ def phase_cpu_agreement():
     for a, b in zip(res[("cpu", "scan")], res[("cuda", "scan")]):
         check(torch.equal(a.ids.cpu(), b.ids.cpu()), "scan on the card: ids differ from CPU")
         check(torch.equal(a.dists.cpu(), b.dists.cpu()), "scan on the card: dists differ from CPU")
+    for a, b, what in zip(dtw["cpu"], dtw["cuda"], ("dists", "positions")):
+        check(torch.equal(words32(a), words32(b.cpu())),
+              f"dtw_knn on the card: {what} differ from the CPU's")
     log("[agree] 8192 x 256, 16 queries, k in (1, 5): the card builds the CPU's tree "
         "bit for bit; its local answers equal the CPU's in every field; scan ids and "
-        "dists equal")
+        f"dists equal; dtw_knn (k=3, band {DTW_BAND}) dists and positions equal the "
+        "CPU's bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -2108,10 +2318,13 @@ def main(argv=None) -> int:
         disk_launches, blocks, summary["disk"], hx = timed(
             "disk", phase_disk, data, queries, local, answers, root, args.profile)
         try:
+            summary["sanitize"] = timed("sanitize", phase_sanitize, hx, queries, answers,
+                                        summary["disk"])
             summary["waves"] = timed("waves", phase_waves, queries, local, answers, hx,
                                      summary)
             summary["shards"] = timed("shards", phase_shards, data, queries, local, answers,
                                       hx, summary)
+            dtw_row, dtw_shapes, summary["dtw"] = timed("dtw", phase_dtw, queries, local)
             summary["store"] = timed("store", phase_store, hx, data, queries, summary)
         finally:
             hx.close()
@@ -2133,8 +2346,8 @@ def main(argv=None) -> int:
                          wave_launches, shard_lb)
     disk_row, ooc_min_row, disk_shapes = timed("disk_kernels", phase_disk_kernels, queries,
                                                blocks, disk_launches)
-    rows += [disk_row, ooc_min_row]
-    shapes += disk_shapes
+    rows += [disk_row, ooc_min_row, dtw_row]
+    shapes += disk_shapes + dtw_shapes
     del blocks
     # launches per run of the kernels at each timed shape (query rows,
     # series rows) in phases 4-7: ed_matrix runs on 4096-row blocks only

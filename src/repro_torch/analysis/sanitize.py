@@ -1,6 +1,16 @@
-"""Runtime concurrency checks under ``REPRO_SANITIZE=1`` (a copy of the
-lockdep and thread-ownership parts of ``repro/analysis/sanitize.py``).
+"""Runtime checks under ``REPRO_SANITIZE=1`` (a copy of
+``repro/analysis/sanitize.py`` for torch tensors).
 
+* Slot canaries: :class:`~repro_torch.data.pipeline.AsyncChunkReader`
+  poisons a host slot (:func:`poison`) the moment the consumer hands it
+  back, then re-checks every tensor ``stage()`` took from it against the
+  host :func:`snapshot` made at stage time (:func:`verify_staged`). A
+  "copy" that aliases the slot (``torch.from_numpy`` of a slot view) now
+  shows the canary and raises :class:`SanitizerError` at the recycle, the
+  earliest instant the alias could change under the consumer.
+* :class:`MmapGuard`: ``storage/format.py::open_saved`` wraps the LRD, LSD
+  and encoded memory maps; any dereference after ``SavedIndex.close()``
+  raises :class:`UseAfterCloseError` instead of reading a dead map.
 * :class:`ThreadAffinity`: first-touch thread ownership of single-owner
   structures (``SlotQueue``);
 * lockdep: :func:`wrap_lock` feeds a process-global lock-acquisition-order
@@ -16,7 +26,15 @@ import os
 import threading
 import traceback
 
+import numpy as np
+import torch
+
 ENV_VAR = "REPRO_SANITIZE"
+
+#: Canary for integer slots. Detection never relies on the value being
+#: impossible in real data (staged copies are compared against snapshots);
+#: it only has to differ from what the slot held when it was staged.
+CANARY_INT = 0xAB
 
 
 def sanitize_enabled() -> bool:
@@ -26,6 +44,10 @@ def sanitize_enabled() -> bool:
 
 class SanitizerError(RuntimeError):
     """A runtime sanitizer check failed."""
+
+
+class UseAfterCloseError(SanitizerError):
+    """A memory-mapped view was dereferenced after its index was closed."""
 
 
 class ThreadOwnershipError(SanitizerError):
@@ -42,6 +64,126 @@ class LockOrderError(SanitizerError):
 class HeldLockError(SanitizerError):
     """A thread-pool work item started or finished while holding a lock:
     pool threads must never carry locks across work-item boundaries."""
+
+
+def poison(buf: np.ndarray) -> None:
+    """Overwrite ``buf`` in place with a canary (NaN for floats): a tensor
+    that still aliases it now reads the canary, and float work on the alias
+    turns to NaN instead of quietly wrong answers."""
+    if buf.dtype.kind == "f":
+        buf[...] = np.nan
+    elif buf.dtype.kind in ("i", "u"):
+        buf[...] = np.asarray(CANARY_INT, dtype=buf.dtype)
+    else:       # bool, bytes: a deterministic flip suffices
+        buf[...] = buf.dtype.type(0)
+
+
+def snapshot(view: np.ndarray) -> np.ndarray:
+    """Host copy of ``view`` taken at ``stage()`` time, for the later check."""
+    return np.array(view, copy=True)
+
+
+def _words(a: np.ndarray) -> np.ndarray:
+    """``a``'s bits as unsigned words of its item size."""
+    a = np.ascontiguousarray(a)
+    return a.view(np.dtype(f"u{a.itemsize}") if a.itemsize in (1, 2, 4, 8) else np.uint8)
+
+
+def verify_staged(staged: torch.Tensor, snap: np.ndarray, *, slot_id: int,
+                  event=None) -> None:
+    """Raise if a staged tensor no longer matches its host snapshot, bit for
+    bit (a copy keeps every bit, NaN payloads too).
+
+    Run after :func:`poison` on the slot the copy came from: a real copy is
+    unaffected, an alias shows the canary. ``event`` is the CUDA event
+    recorded behind the copy (the reader's ``_copied`` events): the tensor
+    is read only once it has completed, so the check never races the
+    side-stream copy."""
+    if event is not None:
+        event.synchronize()
+    host = staged.detach().cpu().numpy()
+    if host.shape != snap.shape or not np.array_equal(_words(host), _words(snap)):
+        raise SanitizerError(
+            f"staged tensor aliases reader slot {slot_id}: after the slot was "
+            "poisoned the 'copy' changed under us. A torch.from_numpy / "
+            "torch.as_tensor view (or a non_blocking copy recycled before its "
+            "event) escaped the reader's explicit copy; use reader.stage() "
+            "(data/pipeline.py::_owned_copy).")
+
+
+class MmapGuard:
+    """Array-like proxy over a memory map that fails loudly after release.
+
+    Wraps ``SavedIndex.lrd`` / ``.lsd`` / ``.enc`` under ``REPRO_SANITIZE=1``.
+    Reads (slicing, ``shape``, ``np.asarray``) delegate to the map until
+    :meth:`release` (called from ``SavedIndex.close()``); afterwards every
+    dereference raises :class:`UseAfterCloseError`. ``torch.from_numpy``
+    takes no array-like: pass it a slice (an ndarray) or ``np.asarray(guard)``.
+    """
+
+    def __init__(self, arr: np.ndarray, label: str):
+        self._arr = arr
+        self._label = label
+        self._released = False
+
+    def _live(self) -> np.ndarray:
+        if self._released:
+            raise UseAfterCloseError(
+                f"{self._label}: memory-mapped view dereferenced after close(). "
+                "Copy what you need (np.array(..., copy=True) / to_layout()) "
+                "before closing the index: a tensor that aliases a closed map "
+                "reads freed pages.")
+        return self._arr
+
+    def release(self) -> None:
+        """Invalidate the guard and close the underlying memory map."""
+        arr, self._arr, self._released = self._arr, None, True
+        mm = getattr(arr, "_mmap", None)
+        if mm is not None:
+            try:
+                mm.close()
+            except BufferError:
+                # exported buffers keep the map alive until they are freed
+                pass
+
+    @property
+    def shape(self):
+        return self._live().shape
+
+    @property
+    def dtype(self):
+        return self._live().dtype
+
+    @property
+    def ndim(self):
+        return self._live().ndim
+
+    @property
+    def size(self):
+        return self._live().size
+
+    def __len__(self):
+        return len(self._live())
+
+    def __getitem__(self, idx):
+        return self._live()[idx]
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self._live()
+        if copy:
+            return np.array(arr, dtype=dtype, copy=True)
+        return np.asarray(arr, dtype=dtype)
+
+    def __repr__(self):
+        state = "released" if self._released else "live"
+        return f"MmapGuard({self._label}, {state})"
+
+
+def guard_mmap(arr, label: str):
+    """Wrap ``arr`` in a :class:`MmapGuard` when sanitizing, else return it."""
+    if arr is not None and sanitize_enabled():
+        return MmapGuard(arr, label)
+    return arr
 
 
 def _stack(skip: int = 2) -> str:

@@ -26,7 +26,10 @@ fault under the consumer.
 On a CUDA device the threaded reader's slots are pinned host tensors; the
 copy runs on a side stream with ``non_blocking=True``, the consumer's
 stream waits on a CUDA event recorded after it, and a slot goes back to the
-reader thread only once that event has completed.
+reader thread only once that event has completed. Under ``REPRO_SANITIZE=1``
+every recycle (at ``get()`` and ``close()``) first poisons the rows the slot
+handed out and then checks each tensor staged from it against a snapshot
+(``analysis/sanitize.py``), so a stage that aliased the slot raises there.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Iterator, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.device import resolve_device
 
 PREFETCH_MODES = ("sync", "thread")
@@ -261,6 +265,11 @@ class AsyncChunkReader:
         self._exc: BaseException | None = None
         self.stats = {"blocks": 0, "read_seconds": 0.0,
                       "read_wait_seconds": 0.0, "overlap_blocks": 0}
+        # REPRO_SANITIZE=1: (slot, host snapshot, staged tensor, copy event)
+        # per stage(), checked against the poisoned slot when it is recycled
+        self._sanitize = sanitize.sanitize_enabled()
+        self._staged_tracks: list = []
+        self._handed: dict[int, int] = {}       # slot -> rows of its last view
         self._thread = threading.Thread(target=self._run,
                                         name=self.THREAD_NAME, daemon=True)
         self._thread.start()
@@ -322,8 +331,7 @@ class AsyncChunkReader:
             raise RuntimeError("get() without a pending submit()")
         self._pending -= 1
         if self._held is not None:              # recycle the previous slot
-            self._wait_copied(self._held)
-            self._free.put(self._held)
+            self._recycle(self._held)
             self._held = None
         overlapped = not self._ready.empty()    # read finished before asked
         t0 = time.perf_counter()
@@ -338,7 +346,30 @@ class AsyncChunkReader:
         self.stats["overlap_blocks"] += int(overlapped)
         self.stats["blocks"] += 1
         self._held = sid
+        self._handed[sid] = n_rows
         return self._slots[sid][:n_rows]
+
+    def _recycle(self, sid: int) -> None:
+        """Hand a slot back to the reader thread once its last copy has
+        completed. Under REPRO_SANITIZE=1 the rows the slot handed out are
+        poisoned first (a slot holds a whole stream block; a leaf run uses
+        its head), then every tensor staged from it is checked against its
+        snapshot: an alias shows the canary and raises before the thread
+        can refill the slot under it."""
+        self._wait_copied(sid)
+        if self._sanitize:
+            sanitize.poison(self._slots[sid][:self._handed.get(sid, 0)])
+            self._verify_staged(sid)
+        self._free.put(sid)
+
+    def _verify_staged(self, sid: int | None) -> None:
+        """Check (and forget) the tracked stages of slot ``sid`` (all of
+        them for ``None``)."""
+        tracked = [t for t in self._staged_tracks if sid is None or t[0] == sid]
+        self._staged_tracks = [t for t in self._staged_tracks
+                               if not (sid is None or t[0] == sid)]
+        for slot_id, snap, staged, event in tracked:
+            sanitize.verify_staged(staged, snap, slot_id=slot_id, event=event)
 
     def stage(self, view: np.ndarray, *, block: bool = True) -> torch.Tensor:
         """Copy the view of the held slot to the reader's device; the
@@ -350,7 +381,9 @@ class AsyncChunkReader:
         ``block=False`` returns at once, and the slot still goes back to the
         reader thread only after the copy (see :meth:`get`)."""
         if self._copy_stream is None:
-            return _owned_copy(view, self.device)
+            out = _owned_copy(view, self.device)
+            self._track(view, out, None)
+            return out
         sid = self._held
         if sid is None or not np.may_share_memory(view, self._slots[sid]):
             raise ValueError("stage() takes the view the last get() returned")
@@ -366,7 +399,13 @@ class AsyncChunkReader:
         self._copied[sid] = ev
         if block:
             ev.synchronize()
+        self._track(view, out, ev)
         return out
+
+    def _track(self, view: np.ndarray, out: torch.Tensor, event) -> None:
+        if self._sanitize and self._held is not None:
+            self._staged_tracks.append(
+                (self._held, sanitize.snapshot(view), out, event))
 
     def close(self) -> None:
         """Idempotent: stops and joins the reader thread (sentinels unblock
@@ -383,6 +422,12 @@ class AsyncChunkReader:
         for sid in list(self._copied):          # no copy may outlive a slot
             self._wait_copied(sid)
         self._held = None
+        if self._sanitize:
+            # the last sweep: nothing refills the slots now; poison what
+            # each handed out and check every stage still tracked
+            for sid, rows in self._handed.items():
+                sanitize.poison(self._slots[sid][:rows])
+            self._verify_staged(None)
 
     def __enter__(self):
         return self

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("lb_sax", "ed", "wkv6")
+SOURCES = ("lb_sax", "ed", "wkv6", "dtw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -123,6 +123,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.wkv6_f32, lib.wkv6_bf16):
             fn.argtypes = [_P] * 8 + [_I] * 5 + [_P]
             fn.restype = _I
+    elif name == "dtw":
+        lib.dtw_band_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+        lib.dtw_band_f32.restype = _I
 
 
 def check(err: int, what: str) -> None:

@@ -240,3 +240,83 @@ def wkv6_fma_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
         wd = wt[..., :, None]
         s = torch.where(wd == 0.0, kv, _round_sum(wd.double() * s.double(), kv.double()))
     return out, s
+
+
+DTW_BIG = 3.0e38        # repro/core/dtw.py's value outside the band
+_DTW_BLOCK_ELEMS = 1 << 22   # (Q, rows, n + 1) elements of one wavefront buffer
+
+
+def dtw_operands(query: torch.Tensor, cands: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, tuple]:
+    """The (Q, n) queries and (Q, B, n) candidates of a banded-DTW call, and
+    the shape of its result: a query (n,) against candidates (..., n) gives
+    (...); queries (Q, n) against their own candidates (Q, B, n) give (Q, B).
+    Both float32."""
+    if query.ndim == 1:
+        n = query.shape[0]
+        if cands.ndim < 1 or cands.shape[-1] != n:
+            raise ValueError(f"dtw: query {tuple(query.shape)} against candidates "
+                             f"{tuple(cands.shape)}; expected (n,) x (..., n)")
+        return (query.to(torch.float32).reshape(1, n),
+                cands.to(torch.float32).reshape(1, -1, n), tuple(cands.shape[:-1]))
+    if query.ndim != 2 or cands.ndim != 3 or cands.shape[0] != query.shape[0] \
+            or cands.shape[2] != query.shape[1]:
+        raise ValueError(f"dtw: queries {tuple(query.shape)} against candidates "
+                         f"{tuple(cands.shape)}; expected (Q, n) x (Q, B, n)")
+    return (query.to(torch.float32), cands.to(torch.float32),
+            tuple(cands.shape[:2]))
+
+
+def dtw_band_ref(query: torch.Tensor, cands: torch.Tensor, band: int) -> torch.Tensor:
+    """Sakoe-Chiba-banded DTW with squared local costs
+    (``repro/core/dtw.py::dtw_distance``); shapes as :func:`dtw_operands`.
+
+    ``D[i][j] = c + min(D[i-1][j-1], D[i-1][j], D[i][j-1])`` for
+    ``|i - j| <= band``, ``c = (b_j - a_i) * (b_j - a_i)`` rounded before the
+    add, :data:`DTW_BIG` outside the band and the matrix, 0 the one
+    predecessor of (0, 0); row 0 takes the same recurrence (only ``left``
+    is present there), never a cumulative sum, whose parallel scan on CUDA
+    would round otherwise. Every cell is one rounded add of an exact
+    minimum, so the result does not depend on evaluation order: this
+    anti-diagonal wavefront (2n - 1 steps, each vectorised over the band and
+    the batch) equals ``csrc/dtw.cu`` row by row, bit for bit, on any
+    device."""
+    if band < 0:
+        raise ValueError(f"dtw: band={band} must be >= 0")
+    q, c, shape = dtw_operands(query, cands)
+    qn, num, n = c.shape
+    out = torch.empty((qn, num), dtype=torch.float32, device=c.device)
+    if qn * num == 0:
+        return out.reshape(shape)
+    if n == 0:
+        raise ValueError("dtw: series of length 0")
+    band = min(band, n - 1)
+    step = max(1, _DTW_BLOCK_ELEMS // (qn * (n + 1)))
+    for lo in range(0, num, step):
+        out[:, lo:lo + step] = _dtw_wavefront(q, c[:, lo:lo + step], band)
+    return out.reshape(shape)
+
+
+def _dtw_wavefront(q: torch.Tensor, c: torch.Tensor, band: int) -> torch.Tensor:
+    """(Q, n) x (Q, B, n) -> (Q, B): the wavefront over anti-diagonals
+    d = i + j. A buffer holds one anti-diagonal indexed by row i + 1; slot
+    0 (row -1) and every cell off the band stay DTW_BIG."""
+    qn, num, n = c.shape
+    dev = c.device
+    prev2 = torch.full((qn, num, n + 1), DTW_BIG, dtype=torch.float32, device=dev)
+    prev1 = prev2.clone()
+    for d in range(2 * n - 1):
+        i_lo = max(0, d - (n - 1), (d - band + 1) // 2)
+        i_hi = min(n - 1, d, (d + band) // 2)
+        i = torch.arange(i_lo, i_hi + 1, device=dev)
+        diff = c[:, :, d - i] - q[:, None, i]
+        cost = diff * diff
+        if d == 0:
+            m = torch.zeros_like(cost)
+        else:
+            m = torch.minimum(torch.minimum(prev2[:, :, i], prev1[:, :, i]),
+                              prev1[:, :, i + 1])       # diag, up, left
+        cur = torch.full_like(prev1, DTW_BIG)
+        cur[:, :, i + 1] = cost + m
+        prev2, prev1 = prev1, cur
+    return prev1[:, :, n]

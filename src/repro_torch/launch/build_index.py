@@ -6,7 +6,8 @@ a journal segment, ``compact`` folds the journal into a new base
 generation, and ``query`` loads the index and, with ``--verify parity``,
 asserts that the disk backends answer bit-identically to in-memory ones
 built over the whole (appended) collection, or with ``--verify exact``
-holds the answers against a brute-force scan. Everything runs on the CUDA
+holds the answers against a float64 difference-form brute force (ids
+equal, dists within 1e-5). Everything runs on the CUDA
 device unless ``--device cpu`` is given.
 
     # build (chunked, streamed to disk) + one-shot equality check
@@ -53,7 +54,7 @@ from repro_torch.api import (ArrayChunkSource, AsyncChunkReader, BuildConfig,
                              Hercules, HerculesIndex, IndexConfig,
                              LocalBackend, NpyChunkSource, QueryEngine,
                              ScanBackend, SearchConfig, backend_names,
-                             brute_force_knn, build_index_to_disk,
+                             build_index_to_disk,
                              list_codecs, make_backend, make_disk_backend,
                              open_index)
 from repro_torch.core.engine import _OutOfCoreBase
@@ -214,6 +215,32 @@ def _assert_same(name: str, a, b) -> None:
     print(f"{name}: bit-identical")
 
 
+_ORACLE_BLOCK_ELEMS = 1 << 24   # float64 elements of one difference block
+
+
+def _exact_oracle(data: np.ndarray, queries: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``--verify exact``'s oracle: a difference-form brute force in float64
+    on the queries' device, in row blocks, and a stable top-k (ties to the
+    lower id). Returns ((Q, k) float64 squared distances, (Q, k) int64 ids).
+    Unlike the matmul identity it has no cancellation to lose digits to, so
+    the 1e-5 tolerance judges the answer, not the oracle."""
+    dev = queries.device
+    q = queries.to(torch.float64)
+    qn, n = q.shape
+    d_top = torch.empty((qn, 0), dtype=torch.float64, device=dev)
+    i_top = torch.empty((qn, 0), dtype=torch.long, device=dev)
+    step = max(1, _ORACLE_BLOCK_ELEMS // max(1, qn * n))
+    for lo in range(0, data.shape[0], step):
+        blk = torch.from_numpy(data[lo:lo + step]).to(device=dev, dtype=torch.float64)
+        d = ((q[:, None, :] - blk[None, :, :]) ** 2).sum(-1)
+        ids = torch.arange(lo, lo + blk.shape[0], device=dev).expand(qn, -1)
+        d_top, order = torch.sort(torch.cat([d_top, d], dim=1), dim=1, stable=True)
+        i_top = torch.gather(torch.cat([i_top, ids], dim=1), 1, order)
+        d_top, i_top = d_top[:, :k], i_top[:, :k]
+    return d_top, i_top
+
+
 def cmd_query(args) -> None:
     dev = resolve_device(args.device)
     with open_index(args.index) as saved:
@@ -322,11 +349,13 @@ def cmd_query(args) -> None:
                          mem_sh.knn(queries, k=k))
         rows["parity"] = "bit-identical"
     elif args.verify == "exact":
-        bf_d, _ = brute_force_knn(torch.from_numpy(data).to(dev),
-                                  queries.to(dev), k)
-        if not torch.allclose(res.dists, bf_d, rtol=1e-5, atol=1e-5):
+        bf_d, bf_i = _exact_oracle(data, queries.to(dev), k)
+        if not torch.equal(res.ids.long(), bf_i):
             raise SystemExit(f"{args.backend}: answers not exact vs brute "
-                             f"force")
+                             f"force (ids differ)")
+        if not torch.allclose(res.dists.double(), bf_d, rtol=1e-5, atol=1e-5):
+            raise SystemExit(f"{args.backend}: answers not exact vs brute "
+                             f"force (dists)")
         budget_bytes = args.memory_budget_mb * (1 << 20)
         coll_bytes = num_series * series_len * 4
         print(f"exact vs brute force: OK (collection {coll_bytes / 2**20:.2f}"

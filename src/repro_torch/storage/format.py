@@ -41,6 +41,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.index import IndexConfig, reference_search_config
 from repro_torch.core.layout import HerculesLayout
 from repro_torch.core.search import SearchConfig
@@ -337,9 +338,11 @@ class SavedIndex:
 
     ``tree`` (CPU tensors) and the ``small`` layout arrays are loaded;
     ``lrd``, ``lsd`` and ``enc`` stay read-only memory maps until rows are
-    sliced out of them. :meth:`close` (or leaving the ``with`` block)
-    releases the maps; a backend still holding the handle then fails loudly
-    instead of reading a dead map.
+    sliced out of them (under ``REPRO_SANITIZE=1`` each is an
+    ``analysis.sanitize.MmapGuard``: slice it or ``np.asarray`` it, never
+    hand it to ``torch.from_numpy``). :meth:`close` (or leaving the
+    ``with`` block) releases the maps; a backend still holding the handle
+    then fails loudly instead of reading a dead map.
     """
     path: str
     manifest: dict
@@ -377,10 +380,15 @@ class SavedIndex:
         return arr
 
     def close(self) -> None:
-        """Release the LRD/LSD (and encoded) memory maps. Idempotent."""
+        """Release the LRD/LSD (and encoded) memory maps. Idempotent. Under
+        ``REPRO_SANITIZE=1`` a view that escaped raises
+        ``UseAfterCloseError`` from then on."""
         for name in ("lrd", "lsd", "enc"):
             arr = getattr(self, name)
             setattr(self, name, None)
+            if isinstance(arr, sanitize.MmapGuard):
+                arr.release()
+                continue
             mm = getattr(arr, "_mmap", None)
             if mm is not None:
                 try:
@@ -472,6 +480,11 @@ def open_saved(path: str, manifest: dict) -> SavedIndex:
             raise IndexFormatError(
                 f"{path!r}: {ENC_FILE} shape {tuple(enc.shape)}/{enc.dtype} "
                 f"does not match manifest codec section {manifest['codec']}")
+    # REPRO_SANITIZE=1 wraps the maps in use-after-close guards (they pass
+    # through otherwise)
+    lrd = sanitize.guard_mmap(lrd, f"{path}:lrd")
+    lsd = sanitize.guard_mmap(lsd, f"{path}:lsd")
+    enc = sanitize.guard_mmap(enc, f"{path}:enc")
     return SavedIndex(
         path=path, manifest=manifest, config=config,
         max_depth=int(manifest["max_depth"]), tree=tree, small=small,

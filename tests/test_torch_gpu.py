@@ -2,7 +2,8 @@
 version, the pinned-slot reader, and the card's build and answers
 (in memory, out of core, through the wave plans, sharded four ways on one
 card, and through the store: append, query with the journal merged,
-compact) and RWKV-6 logits and tokens against the CPU's.
+compact), the banded-DTW kernel and ``dtw_knn``, the sanitized pinned
+reader, and RWKV-6 logits and tokens against the CPU's.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -26,6 +27,8 @@ reset on); bf16 r/k/v are widened exactly and the state holds 1e-4, while
 the bf16 output, rounded from float32 sums in another order, holds the
 bfloat16 tolerance; and bit for bit ``wkv6_fma_ref`` (NaNs compared as one
 word: the card's fmaf and the reference's float64 give NaNs other payloads).
+``dtw_band``: bit for bit ``dtw_band_ref`` (each DP cell one rounded add of
+an exact minimum), so ``dtw_knn`` on the card equals the CPU's bit for bit.
 """
 import itertools
 
@@ -33,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import dtw as TD
 from repro_torch.core import engine as E
 from repro_torch.core import layout as TL
 from repro_torch.core import summaries as TS
@@ -42,6 +46,7 @@ from repro_torch.core.search import SearchConfig
 from repro_torch.data import pipeline as TP
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import _build
+from repro_torch.kernels import dtw as kdtw
 from repro_torch.kernels import ed as ked
 from repro_torch.kernels import lb_sax as klb
 from repro_torch.kernels import ops as tops
@@ -773,3 +778,56 @@ def test_rwkv6_smoke_on_the_card_equals_cpu(cuda):
         outs.append(eng.run())
     assert outs[0] == outs[1]
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("band", [0, 13, 255])
+def test_dtw_band_kernel_equals_plain_bitwise(cuda, n, band):
+    """The banded-DTW kernel equals ``dtw_band_ref`` in every bit: a query
+    against a ragged number of candidates (a block's edge), and queries
+    against their own candidates (a refinement round); band 255 covers the
+    whole matrix at both lengths (clamped to n - 1) and takes the kernel's
+    opt-in shared memory at n = 256."""
+    data = torch.from_numpy(walks(21, 1000, n)).to(cuda)
+    q = torch.from_numpy(walks(22, 3, n)).to(cuda)
+    for qa, ca in ((q[0], data), (q, data[:3 * 257].reshape(3, 257, n))):
+        before = kdtw.dtw_band.launches
+        got = kdtw.dtw_band(qa, ca, band)
+        assert kdtw.dtw_band.launches == before + 1
+        want = tref.dtw_band_ref(qa, ca, band)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(kdtw.dtw_band(q[0], data, band).cpu(),
+                       tref.dtw_band_ref(q[0].cpu(), data.cpu(), band))
+
+
+def test_dtw_knn_on_the_card_equals_cpu(cuda):
+    """``dtw_knn`` over the same index on the card and on the CPU: dists and
+    positions equal bit for bit (LB_Keogh is a fixed-order sum and each DTW
+    cell one rounded add, so even the refinement order is the same)."""
+    data = walks(23, 4096, 128)
+    rng = np.random.default_rng(24)
+    q = torch.from_numpy((data[rng.integers(0, 4096, 6)]
+                          + rng.standard_normal((6, 128)) * np.sqrt(0.05)).astype(np.float32))
+    icfg = IndexConfig(build=TT.BuildConfig(leaf_capacity=128),
+                       search=SearchConfig(chunk=256, scan_block=256))
+    gpu = E.make_backend("local", data, index_config=icfg, device=cuda).index.layout
+    cpu = E.make_backend("local", data, index_config=icfg, device="cpu").index.layout
+    for k, band in ((1, 6), (4, 13)):
+        sg, sc = {}, {}
+        dg, pg = TD.dtw_knn(gpu, q.to(cuda), k=k, band=band, stats=sg)
+        dc, pc = TD.dtw_knn(cpu, q, k=k, band=band, stats=sc)
+        assert torch.equal(dg.cpu().view(torch.int32), dc.view(torch.int32))
+        assert torch.equal(pg.cpu(), pc)
+        assert sg == sc
+
+
+def test_sanitized_pinned_reader_equals_plain(cuda, monkeypatch):
+    """Under REPRO_SANITIZE=1 the pinned reader poisons each recycled slot
+    and checks every staged copy after its event: a real copy passes (no
+    SanitizerError), with the plain reader's bytes."""
+    from repro_torch.analysis import sanitize
+    monkeypatch.setenv(sanitize.ENV_VAR, "1")
+    data = np.random.default_rng(25).standard_normal((3000, 40)).astype(np.float32)
+    src = TP.ArrayChunkSource(data, 512)
+    got = torch.cat([c for _, c in TP.iter_device_chunks(src, cuda, prefetch="thread")])
+    np.testing.assert_array_equal(got.cpu().numpy(), data)

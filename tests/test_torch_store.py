@@ -871,3 +871,56 @@ class TestCli:
         j = JHerculesIndex.load(path)
         assert t.layout.num_series == j.layout.num_series == 2000
         np.testing.assert_array_equal(t.layout.lrd.numpy(), np.asarray(j.layout.lrd))
+
+
+@pytest.fixture(scope="module")
+def bf16_seed7_store(tmp_path_factory):
+    """The 4,096 x 64 bf16 store of the CLI's default seed 7."""
+    idx = str(tmp_path_factory.mktemp("seed7") / "idx")
+    cli.main(["build", "--out", idx, "--num", "4096", "--length", "64",
+              "--codec", "bf16", "--device", "cpu"])
+    return idx
+
+
+class TestVerifyExact:
+    """``query --verify exact``: ids equal to a float64 difference-form brute
+    force and dists within 1e-5. The matmul-identity oracle it replaces lost
+    up to 3.9e-5 at distances near 3 on this store and refused exact
+    answers of every backend."""
+
+    @pytest.mark.parametrize("backend", ["local", "ooc-local"])
+    def test_exact_answers_pass(self, bf16_seed7_store, capsys, backend):
+        cli.main(["query", "--index", bf16_seed7_store, "--backend", backend,
+                  "--queries", "16", "--difficulty", "5%", "--verify", "exact",
+                  "--device", "cpu"])
+        assert "exact vs brute force: OK" in capsys.readouterr().out
+
+    def test_oracle_is_a_float64_difference_scan(self, monkeypatch):
+        rng = np.random.default_rng(12)
+        data = rng.standard_normal((300, 24)).astype(np.float32)
+        data[200] = data[17]                     # a tie: the lower id wins
+        q = torch.from_numpy(np.stack([data[17], data[5] + 0.01]))
+        d, i = cli._exact_oracle(data, q, 3)
+        want = ((data[None].astype(np.float64)
+                 - q.numpy()[:, None].astype(np.float64)) ** 2).sum(-1)
+        np.testing.assert_array_equal(i.numpy(), np.argsort(want, 1, kind="stable")[:, :3])
+        # float64 sums in another order: equal to ~1e-16 relative
+        np.testing.assert_allclose(d.numpy(), np.sort(want, 1)[:, :3], rtol=1e-12)
+        assert i[0, :2].tolist() == [17, 200]
+        monkeypatch.setattr(cli, "_ORACLE_BLOCK_ELEMS", 2 * 24 * 7)   # blocks of 7 rows
+        d7, i7 = cli._exact_oracle(data, q, 3)
+        assert torch.equal(d7, d) and torch.equal(i7, i)
+
+    def test_wrong_ids_are_refused(self, bf16_seed7_store, monkeypatch):
+        """Ids are held now, not only dists: an answer whose ids are off
+        fails even where its dists pass."""
+        real = cli._exact_oracle
+
+        def shifted(data, queries, k):
+            d, i = real(data, queries, k)
+            return d, i + 1
+
+        monkeypatch.setattr(cli, "_exact_oracle", shifted)
+        with pytest.raises(SystemExit, match="ids differ"):
+            cli.main(["query", "--index", bf16_seed7_store, "--verify", "exact",
+                      "--device", "cpu"])
