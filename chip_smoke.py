@@ -127,7 +127,25 @@ Phases (any failure ends the run with a non-zero exit):
    first token equals the request's solo run wherever its top-2 margin
    exceeds twice the float32 logit tolerance;
 13. the card against the CPU at full width and 2 layers in float32: a
-   64-token prefill and 4 decode steps, logits within 1e-4, equal tokens.
+   64-token prefill and 4 decode steps, logits within 1e-4, equal tokens;
+14. dense LM serving at full width: ``minicpm-2b`` (all 40 layers, d_model
+   2304, vocab 122,753, bf16 compute, float32 parameters, ~3.0 B
+   parameters) with random weights from a seed, 8 requests of 512-token
+   prompts through ``ServeEngine`` in two waves of 4, 32 new tokens each;
+   logits finite; the waves replayed step by step give the engine's
+   tokens; prefill ms a wave, decode ms a step, tok/s and peak memory;
+15. training at full width: the same model, 6 steps of ``make_train_step``
+   (AdamW with minicpm's WSD schedule at 3e-4 from the first step, float32
+   moments, remat) at B=4, S=512 on one repeated ``synth_batch``; loss and
+   grad norm finite, the last loss below the first; step time, tokens/s,
+   TFLOP/s by 6*N*D and peak memory; then one step with int8 moments;
+16. the card against the CPU: ``minicpm-2b`` at full width and 2 layers in
+   float32 (logits and the train step's loss within 1e-4, each gradient
+   within 1e-4 of its tensor's largest magnitude, the grad norm within 1e-4
+   relative, AdamW on the same gradients within 1e-6); a smoke-size
+   checkpoint written on the card and reloaded, training on within 1e-6 of
+   an uninterrupted run; ``examples/torch_retrieval_lm.py``'s path on the
+   card, exact against brute force, ``lb_sax_matrix`` launched.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
 ``device_ms``, a CUDA graph's time; the ``dtw_band`` row from phase 7b at
@@ -2072,6 +2090,9 @@ def phase_wkv6_kernel():
             shape=list(shapes[kind]), ms=time_ms(run, reps=reps, warmup=2),
             device_ms=device_ms(run, reps=reps),
             bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS))
+        if kind == "decode":        # the plain version at one step (prefill's is the row's)
+            by_shape[f"{kind} {dtype}"]["plain_ms"] = time_ms(
+                lambda a=a: ref.wkv6_ref(*a), reps=20, warmup=2)
     served = by_shape["prefill bfloat16"]
     row = dict(
         name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
@@ -2087,7 +2108,9 @@ def phase_wkv6_kernel():
         f"{err['prefill', 'float32']:.3e}), the decode shape {shapes['decode']}, the "
         f"extreme decays and the overflow-then-reset case, and equals wkv6_fma_ref in "
         f"every bit at all of them")
-    log(f"[timing] wkv6, plain {row['plain_ms']:.4f} ms (prefill, bf16), library none; "
+    log(f"[timing] wkv6, plain {row['plain_ms']:.4f} ms (prefill, bf16), decode "
+        f"{by_shape['decode bfloat16']['plain_ms']:.4f} (bf16) / "
+        f"{by_shape['decode float32']['plain_ms']:.4f} (float32), library none; "
         f"kernel host loop / device (bound): " + "; ".join(
             f"{name} {r['ms']:.4f} / {r['device_ms']:.4f} ({r['bound_ms']:.5f}, "
             f"{r['bound_ms'] / r['device_ms']:.1%})" for name, r in by_shape.items()))
@@ -2277,13 +2300,321 @@ def phase_lm_cpu_agreement():
         f"{runs['cpu'][2]:.2f}s)")
 
 
+DENSE_ARCH = "minicpm-2b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 6
+# minicpm's schedule (WSD), at its peak rate from the first step: warmup 1
+# (the default 100 would leave these steps at under 6% of the rate), the
+# decay beyond total_steps
+TRAIN_OPT = dict(learning_rate=3e-4, warmup_steps=1, total_steps=1000, schedule="wsd")
+
+
+def _all_launches() -> dict:
+    from repro_torch.kernels import dtw as kdtw, wkv6 as kwkv
+    return {**read_counters(), "wkv6": kwkv.wkv6.launches, "dtw_band": kdtw.dtw_band.launches}
+
+
+def phase_dense_serve(profile: bool = False):
+    """minicpm-2b at its published width and depth (40 layers, bf16 compute,
+    float32 parameters, random weights) through ``ServeEngine``: 8 requests
+    of 512-token prompts in two waves of 4, 32 new tokens each; logits
+    finite; the waves replayed step by step through ``prefill`` /
+    ``decode_step`` give the engine's tokens. Returns the phase's summary."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_config(DENSE_ARCH)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count() + cfg.num_layers * 2 * cfg.d_model + cfg.d_model,
+          f"{DENSE_ARCH}: {n_params} parameters, not the analytic count plus the norms")
+    log(f"[dense] {DENSE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim} (kv {cfg.num_kv_heads}), {cfg.dtype} compute; {n_params} "
+        f"float32 parameters ({n_params * 4 / 2**30:.2f} GiB) made on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+    eng = ServeEngine(model, cfg, params,
+                      ServeConfig(max_seq=LM_PROMPT + LM_NEW + 8, batch_slots=LM_SLOTS,
+                                  max_new_tokens=LM_NEW))
+    eng.submit(prompts[0, :16])          # warm-up: cuBLAS set-up, the bf16 weight copies
+    eng.run()
+    rids = [eng.submit(p) for p in prompts]
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _all_launches()
+    tokens = sum(len(out[r]) for r in rids)
+    log(f"[dense] served {len(out)} requests, {tokens} tokens in {run_s:.3f}s "
+        f"({tokens / run_s:.1f} tok/s); the port's kernels launched {launches} (none are "
+        f"on this path: attention, MLP and head are torch ops)")
+    check(all(c == 0 for c in launches.values()), f"kernels launched in the dense run: "
+                                                    f"{launches}")
+    check(sorted(out) == rids and all(len(out[r]) == LM_NEW for r in rids),
+          "the engine did not return LM_NEW tokens for every request")
+
+    toks = torch.from_numpy(prompts.astype(np.int32)).cuda()
+    prefill_ms, decode_ms = [], []
+    with torch.no_grad():
+        for w0 in range(0, LM_REQUESTS, LM_SLOTS):
+            cache = model.init_cache(cfg, LM_SLOTS, LM_PROMPT + LM_NEW, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.prefill(params, {"tokens": toks[w0:w0 + LM_SLOTS]}, cfg, cache)
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+            check(bool(torch.isfinite(lg).all()), "dense prefill logits are not finite")
+            tok = torch.argmax(lg[:, -1], dim=-1)
+            seq = [tok]
+            for _ in range(LM_NEW - 1):
+                t0 = time.perf_counter()
+                lg, cache = model.decode_step(params, tok[:, None].to(torch.int32), cfg, cache)
+                tok = torch.argmax(lg[:, 0], dim=-1)
+                torch.cuda.synchronize()
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
+                check(bool(torch.isfinite(lg).all()), "dense decode logits are not finite")
+                seq.append(tok)
+            check(torch.stack(seq, 1).tolist() == [out[r] for r in rids[w0:w0 + LM_SLOTS]],
+                  f"the dense wave at {w0} driven step by step differs from the engine's")
+        if profile:
+            batch = {"tokens": toks[:LM_SLOTS]}
+            trace(f"{DENSE_ARCH} prefill of a 4 x {LM_PROMPT} wave",
+                  lambda: model.prefill(params, batch, cfg,
+                                        model.init_cache(cfg, LM_SLOTS, LM_PROMPT + 2, "cuda")))
+            lg, cache = model.prefill(params, batch, cfg,
+                                      model.init_cache(cfg, LM_SLOTS, LM_PROMPT + 2, "cuda"))
+            nxt = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
+            trace(f"{DENSE_ARCH} decode step, 4 rows",
+                  lambda: model.decode_step(params, nxt, cfg, cache))
+    dec = sorted(decode_ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[dense] prefill of a 4 x {LM_PROMPT} wave: {prefill_ms[0]:.2f} / "
+        f"{prefill_ms[1]:.2f} ms; decode step (4 rows): median {dec[len(dec) // 2]:.3f} ms, "
+        f"min {dec[0]:.3f}, max {dec[-1]:.3f} over {len(dec)} steps; every logit finite; "
+        f"step-by-step tokens equal the engine's; peak device memory {peak:.2f} GiB")
+    return {"params": n_params, "run_s": run_s, "tok_per_s": tokens / run_s,
+            "prefill_ms": prefill_ms, "decode_ms_median": dec[len(dec) // 2],
+            "peak_gib": peak}
+
+
+def phase_dense_train(profile: bool = False):
+    """minicpm-2b trained at its published width and depth: TRAIN_STEPS
+    steps of ``make_train_step`` (AdamW, WSD, float32 moments, remat) at
+    B=4, S=512 on one repeated ``synth_batch``; loss and grad norm finite,
+    the last loss below the first (``profile`` traces one step more); then
+    one step with int8 moments from a fresh state. No checkpoint is written
+    (~48 GB). Returns the summary."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, TrainConfig, adamw_init, make_train_step
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = get_config(DENSE_ARCH)
+    check(cfg.remat, f"{DENSE_ARCH}'s config trains with remat")
+    model = get_model(cfg)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(model, cfg, tcfg,
+                                   torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, cfg, tcfg)
+    batch = synth_batch(0, 0, cfg, TRAIN_B, TRAIN_S, "cuda")
+    losses, gnorms, step_s = [], [], []
+    reset_counters()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = _all_launches()
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"train losses {losses} or grad norms {gnorms} not finite")
+    check(losses[-1] < losses[0], f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    check(all(c == 0 for c in launches.values()), f"kernels launched in training: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_B * TRAIN_S
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    flops = 6 * cfg.param_count() * tokens
+    log(f"[train] {DENSE_ARCH} full width and depth, B={TRAIN_B} S={TRAIN_S}, remat, bf16 "
+        f"compute, float32 params and moments, AdamW {TRAIN_OPT}: losses "
+        f"{[round(v, 4) for v in losses]}, grad norms {[round(v, 4) for v in gnorms]}; step "
+        f"s {[round(v, 3) for v in step_s]} (median after the first {med:.3f}s, "
+        f"{tokens / med:.1f} tokens/s, {flops / med / 1e12:.1f} TFLOP/s by 6*N*D, "
+        f"N={cfg.param_count()}); peak device memory {peak:.2f} GiB")
+    if profile:
+        trace(f"{DENSE_ARCH} train step, B={TRAIN_B} S={TRAIN_S}",
+              lambda: step(params, opt, batch))
+    del opt
+    torch.cuda.empty_cache()
+    tcfg8 = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT, moment_dtype="int8"))
+    opt8 = adamw_init(params, tcfg8.optimizer)
+    step8 = make_train_step(model, cfg, tcfg8)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt8, m8 = step8(params, opt8, batch)
+    torch.cuda.synchronize()
+    s8 = time.perf_counter() - t0
+    peak8 = torch.cuda.max_memory_allocated() / 2**30
+    check(math.isfinite(float(m8["loss"])) and math.isfinite(float(m8["grad_norm"])),
+          "the int8-moment step's loss or grad norm is not finite")
+    log(f"[train] one step with int8 moments (fresh state) after those: loss "
+        f"{float(m8['loss']):.4f}, grad norm {float(m8['grad_norm']):.4f}, {s8:.3f}s "
+        f"({tokens / s8:.1f} tokens/s); peak device memory {peak8:.2f} GiB")
+    return {"losses": losses, "grad_norms": gnorms, "step_s": step_s, "step_s_median": med,
+            "tokens_per_s": tokens / med, "tflops_6nd": flops / med / 1e12, "peak_gib": peak,
+            "int8_step_s": s8, "int8_loss": float(m8["loss"]), "int8_peak_gib": peak8}
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_dense_cpu_agreement():
+    """The card against the CPU: minicpm-2b at full width and 2 layers in
+    float32 (forward logits, the train step's loss and metrics within 1e-4,
+    each gradient within 1e-4 of its tensor's largest magnitude, the grad
+    norm within 1e-4 relative; AdamW on the card's gradients within 1e-6);
+    a smoke-size checkpoint written on the card, reloaded and trained on,
+    within 1e-6 of an uninterrupted run; the retrieval example's path on
+    the card, exact against brute force, ``lb_sax_matrix`` launched."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import common as C
+    from repro_torch.models import get_model
+    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init, adamw_update,
+                                   load_checkpoint, make_train_step, save_checkpoint)
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import init_train_state, make_grad_fn
+
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2, dtype="float32")
+    model = get_model(cfg)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+    gpu = model.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    cpu = model.params_from_numpy(C.stack_tree(gpu.tree()), cfg, "cpu")
+    batch = synth_batch(1, 0, cfg, 2, 32, "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        err_logits = assert_close(model.forward(gpu, {k: v.cuda() for k, v in batch.items()},
+                                                cfg)[0],
+                                  model.forward(cpu, batch, cfg)[0], "float32",
+                                  f"{DENSE_ARCH} 2 layers: card vs CPU logits")
+    grad_fn = make_grad_fn(model, cfg, tcfg)
+    mg, gg = grad_fn(gpu, {k: v.cuda() for k, v in batch.items()})
+    mc, gc = grad_fn(cpu, batch)
+    for k in mc:
+        assert_close(mg[k], mc[k], "float32", f"train-step metric {k}: card vs CPU")
+    worst = 0.0
+    for (path, gs), (_, cs) in zip(C.leaf_groups(gg), C.leaf_groups(gc)):
+        for a, b in zip(gs, cs):
+            rel = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            worst = max(worst, rel)
+            check(rel <= 1e-4, f"gradient {'/'.join(path)}: card vs CPU differ by {rel:.3e} "
+                               f"of its largest magnitude")
+    ng, nc = float(global_norm(gg)), float(global_norm(gc))
+    check(abs(ng - nc) <= 1e-4 * nc, f"grad norm card {ng} vs CPU {nc}")
+    gg_cpu = C.tree_map(lambda g: g.cpu(), gg)
+    adamw_update(gpu, gg, adamw_init(gpu, tcfg.optimizer), tcfg.optimizer)
+    adamw_update(cpu, gg_cpu, adamw_init(cpu, tcfg.optimizer), tcfg.optimizer)
+    err_adam = 0.0
+    for a, b in zip(gpu.parameters(), cpu.parameters()):
+        err = float((a.detach().cpu() - b.detach()).abs().max())
+        err_adam = max(err_adam, err)
+        check(err <= 1e-6, f"AdamW on the same gradients: card vs CPU params differ by {err:.3e}")
+    log(f"[dense-agree] {DENSE_ARCH} full width, 2 layers, float32, B=2 S=32: logits max abs "
+        f"err {err_logits:.3e}, loss {float(mg['loss']):.6f} vs {float(mc['loss']):.6f}, "
+        f"gradients within {worst:.3e} of each tensor's largest magnitude, grad norm "
+        f"{ng:.6f} vs {nc:.6f}, AdamW params within {err_adam:.3e} "
+        f"({time.perf_counter() - t0:.2f}s)")
+    del gpu, cpu, gg, gc, gg_cpu
+    torch.cuda.empty_cache()
+
+    # a smoke-size checkpoint on the card: 2 steps, save, load, 2 more,
+    # against 4 straight steps
+    scfg = get_smoke(DENSE_ARCH)
+    smodel = get_model(scfg)
+    stcfg = TrainConfig(optimizer=AdamWConfig(learning_rate=1e-3, warmup_steps=2))
+    sstep = make_train_step(smodel, scfg, stcfg)
+
+    def run(params, opt, steps):
+        for t in steps:
+            params, opt, _ = sstep(params, opt, synth_batch(4, t, scfg, 4, 16, "cuda"))
+        return params, opt
+
+    straight, _ = run(*init_train_state(smodel, scfg, stcfg,
+                                        torch.Generator(device="cuda").manual_seed(2)), range(4))
+    half = run(*init_train_state(smodel, scfg, stcfg,
+                                 torch.Generator(device="cuda").manual_seed(2)), range(2))
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        save_checkpoint(ckpt, 2, {"params": half[0], "opt": half[1]}, {"rng_seed": 4})
+        state, meta = load_checkpoint(ckpt, device="cuda")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resumed, _ = run(smodel.params_from_numpy(state["params"], scfg, "cuda"), state["opt"],
+                     range(meta["step"], 4))
+    err_ckpt = max(float((a.detach() - b.detach()).abs().max())
+                   for a, b in zip(straight.parameters(), resumed.parameters()))
+    check(err_ckpt <= 1e-6, f"training on from a checkpoint differs by {err_ckpt:.3e} from an "
+                            f"uninterrupted run")
+    log(f"[dense-agree] {scfg.name}: 2 steps, a checkpoint written on the card and reloaded, "
+        f"2 more steps: within {err_ckpt:.3e} of 4 straight steps")
+
+    # the retrieval example's path on the card
+    ex = _load_example("torch_retrieval_lm")
+    t0 = time.perf_counter()
+    params, metrics = ex.train("cuda")
+    vecs = ex.embed(params, ex.draw_tokens(1, (2048, 32), "cuda"))
+    qvecs = ex.embed(params, ex.draw_tokens(2, (5, 32), "cuda"))
+    reset_counters()
+    _, res, bf_d, bf_i = ex.retrieve(vecs, qvecs)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    check(launches["lb_sax_matrix"] > 0, f"the retrieval example's search launched no "
+                                         f"lb_sax_matrix: {launches}")
+    check(torch.allclose(res.dists, bf_d, rtol=1e-3, atol=1e-3),
+          "retrieval example: the index's distances differ from brute force")
+    check(torch.equal(res.ids.long(), bf_i.long()),
+          "retrieval example: the index's ids differ from brute force")
+    check(math.isfinite(float(metrics["loss"])), "retrieval example: loss not finite")
+    log(f"[dense-agree] retrieval example on the card: 20 steps to loss "
+        f"{float(metrics['loss']):.4f}, 2048 corpus and 5 prompt embeddings, exact k=3 kNN "
+        f"equal to brute force (ids equal, dists within 1e-3); launches {launches} "
+        f"({time.perf_counter() - t0:.2f}s)")
+    return {"logits_err": err_logits, "grad_rel_err": worst, "adamw_err": err_adam,
+            "ckpt_err": err_ckpt, "retrieval_launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--num-series", type=int, default=FULL_SERIES)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 16 queries per backend, and a prefill wave and a "
-                         "decode step of rwkv6-7b, with torch.profiler")
+                    help="also trace 16 queries per backend, a prefill wave and a "
+                         "decode step of rwkv6-7b and of minicpm-2b, and a minicpm-2b "
+                         "train step, with torch.profiler")
     ap.add_argument("--disk-dir", default=None,
                     help="directory for the disk phase's index (default: a new "
                          "temporary directory); removed at the end")
@@ -2423,8 +2754,16 @@ def main(argv=None) -> int:
     phase_lm_cpu_agreement()
     summary["lm"]["phases_s"] = time.perf_counter() - t_lm
     log(f"[lm] the LM phases (11-13) took {summary['lm']['phases_s']:.1f}s")
-    log(f"[main] summary {json.dumps(summary)}")
     phase_s["lm"] = round(summary["lm"]["phases_s"], 1)
+    torch.cuda.empty_cache()
+    summary["dense_serve"] = timed("dense_serve", phase_dense_serve, args.profile)
+    torch.cuda.empty_cache()
+    summary["dense_train"] = timed("dense_train", phase_dense_train, args.profile)
+    torch.cuda.empty_cache()
+    summary["dense_agree"] = timed("dense_agree", phase_dense_cpu_agreement)
+    log(f"[dense] phases 14-16 took {phase_s['dense_serve']} / {phase_s['dense_train']} / "
+        f"{phase_s['dense_agree']}s")
+    log(f"[main] summary {json.dumps(summary)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "bytes", "ops",

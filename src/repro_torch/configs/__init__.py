@@ -1,9 +1,11 @@
 """Architecture config registry: ``--arch <id>`` resolution
-(``repro/configs/__init__.py``), holding only the archs the port can run.
+(``repro/configs/__init__.py``), holding only the archs the port can run:
+the dense and vlm transformers and RWKV-6.
 
 Each module defines CONFIG (the architecture at its published widths) and
-SMOKE (a reduced same-family config for CPU tests). The other archs of the
-reference wait for their model families (``ROADMAP.md``).
+SMOKE (a reduced same-family config for CPU tests), each equal to the
+reference's field by field. The MoE, hybrid and audio archs wait for their
+model families (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -12,6 +14,11 @@ import importlib
 from repro_torch.models.arch import ArchConfig
 
 _MODULES = {
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "granite-34b": "granite_34b",
+    "llama3-405b": "llama3_405b",
+    "minicpm-2b": "minicpm_2b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "rwkv6-7b": "rwkv6_7b",
 }
 
@@ -30,3 +37,7 @@ def get_config(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return _load(name).SMOKE
+
+
+def all_configs() -> dict[str, ArchConfig]:
+    return {n: get_config(n) for n in ARCH_NAMES}

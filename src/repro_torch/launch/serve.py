@@ -2,13 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --requests 8 --prompt-len 512 --new-tokens 32 --slots 4
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b --smoke \
         --device cpu
 
-Builds the arch with random weights (seed 0) on the CUDA device
-(``--device cpu`` for the host; ``--smoke`` for the reduced config), queues
-random prompts, serves them greedily through ``ServeEngine`` and reports
-requests, tokens, seconds and tokens per second.
+Builds the arch (any registered dense, vlm or ssm arch) with random
+weights (seed 0) on the CUDA device (``--device cpu`` for the host;
+``--smoke`` for the reduced config), queues random prompts (a vlm request
+also carries random patch embeddings), serves them greedily through
+``ServeEngine`` and reports requests, tokens, seconds and tokens per
+second.
 """
 from __future__ import annotations
 
@@ -44,8 +46,12 @@ def main(argv=None):
                                   batch_slots=args.slots,
                                   max_new_tokens=args.new_tokens))
     rng = np.random.default_rng(0)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["patch_embeds"] = rng.normal(
+            size=(cfg.num_patches, cfg.d_patch)).astype(np.float32)
     for _ in range(args.requests):
-        eng.submit(rng.integers(0, cfg.vocab_size, size=args.prompt_len))
+        eng.submit(rng.integers(0, cfg.vocab_size, size=args.prompt_len), extras)
     synchronize(dev)
     t0 = time.perf_counter()
     out = eng.run()

@@ -1,7 +1,8 @@
 """Model registry: ArchConfig -> ModelDef dispatch (``repro/models/__init__.py``).
 
-The port runs the ``ssm`` family (RWKV-6). The reference's other families
-(dense, moe, vlm, hybrid, audio) are still to port (``ROADMAP.md``).
+The port runs the ``dense`` and ``vlm`` families (``transformer``) and the
+``ssm`` family (RWKV-6). The reference's ``moe``, ``hybrid`` and ``audio``
+families are still to port (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -19,17 +20,20 @@ class ModelDef:
     init_cache: Callable[..., dict]      # (cfg, batch, max_seq, device) -> cache
     prefill: Callable[..., tuple]        # (params, batch, cfg, cache)
     decode_step: Callable[..., tuple]    # (params, tokens, cfg, cache)
+    params_from_numpy: Callable[..., object]   # (reference tree, cfg, device) -> params
 
 
 def get_model(cfg: ArchConfig) -> ModelDef:
-    if cfg.family == "ssm":
+    if cfg.family in ("dense", "vlm"):
+        from repro_torch.models import transformer as m
+    elif cfg.family == "ssm":
         from repro_torch.models import rwkv6 as m
-    elif cfg.family in ("dense", "moe", "vlm", "hybrid", "audio"):
+    elif cfg.family in ("moe", "hybrid", "audio"):
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}) is not ported yet; see "
-            "ROADMAP.md, queue 1 item 15")
+            "ROADMAP.md, queue 1 item 5")
     else:
         raise ValueError(f"unknown family {cfg.family}")
     return ModelDef(init=m.init_params, forward=m.forward,
                     init_cache=m.init_cache, prefill=m.prefill,
-                    decode_step=m.decode_step)
+                    decode_step=m.decode_step, params_from_numpy=m.params_from_numpy)

@@ -7,9 +7,10 @@ recurrence with bonus ``u``, grouped-head output norm, silu(g) gating) and a
 **channel-mix** block (squared-relu FFN gated by sigmoid(r)), as the
 reference has them (static lerp coefficients in place of the ddlerp LoRA).
 
-Parameters are a :class:`ParamTree`: ``nn.Module``s whose float32
-parameters carry the reference's names and shapes, with ``blocks`` a list of
-layers where the reference stacks them on a leading axis. The functions
+Parameters are a :class:`ParamTree` (``models/common.py``): ``nn.Module``s
+whose float32 parameters carry the reference's names and shapes, with
+``blocks`` a list of layers where the reference stacks them on a leading
+axis. The functions
 below take it as ``params`` and mirror the reference's numerics: the
 compute dtype is ``cfg.dtype``; each projection uses its weight rounded to
 that dtype (the reference's ``w.astype(x.dtype)`` at the call; here the
@@ -25,56 +26,20 @@ plain version (``wkv6_ref``) on every device; the two compute one function.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
-from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import common as C
 from repro_torch.models.arch import ArchConfig
+from repro_torch.models.common import ParamTree
 
 _DECAY_LORA = 64
 
 
 def _heads(cfg: ArchConfig) -> int:
     return cfg.d_model // cfg.rwkv_head_size
-
-
-class ParamTree(nn.Module):
-    """A nested dict of tensors as a module tree: a tensor becomes a frozen
-    parameter, a dict a child ``ParamTree``, a list an ``nn.ModuleList``.
-
-    :meth:`mat` hands out a matrix rounded to the compute dtype, made at
-    first use and kept. The parameters are frozen: moving the tree
-    (``.to``) drops the copies, nothing else writes them."""
-
-    def __init__(self, tree: dict):
-        super().__init__()
-        self._casts: dict = {}
-        for name, value in tree.items():
-            if isinstance(value, torch.Tensor):
-                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
-            elif isinstance(value, dict):
-                self.add_module(name, ParamTree(value))
-            else:
-                self.add_module(name, nn.ModuleList(ParamTree(v) for v in value))
-
-    def mat(self, name: str, dtype: torch.dtype) -> torch.Tensor:
-        """Parameter ``name`` rounded to ``dtype``: the parameter itself
-        when it has that dtype, else a copy made at first use."""
-        p = getattr(self, name)
-        if p.dtype == dtype:
-            return p
-        key = (name, dtype)
-        if key not in self._casts:
-            self._casts[key] = p.to(dtype)
-        return self._casts[key]
-
-    def _apply(self, fn, *args, **kwargs):
-        self._casts.clear()
-        return super()._apply(fn, *args, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -136,20 +101,11 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> ParamTree:
 
 def params_from_numpy(tree: dict, cfg: ArchConfig,
                       device: str | torch.device | None = None) -> ParamTree:
-    """The reference's parameter tree, as numpy arrays (``blocks`` stacked
-    on a leading layer axis, as ``jax.vmap`` leaves it), carried into the
-    port's :class:`ParamTree` on ``device`` (default: the CUDA device)."""
-    dev = resolve_device(device)
-
-    def convert(node, layer=None):
-        if isinstance(node, dict):
-            return {key: convert(val, layer) for key, val in node.items()}
-        arr = np.asarray(node, dtype=np.float32)
-        return torch.tensor(arr if layer is None else arr[layer], device=dev)
-
-    out = {key: convert(val) for key, val in tree.items() if key != "blocks"}
-    out["blocks"] = [convert(tree["blocks"], i) for i in range(cfg.num_layers)]
-    return ParamTree(out)
+    """The reference's parameter tree, as numpy arrays or tensors
+    (``blocks`` stacked on a leading layer axis, as ``jax.vmap`` leaves
+    it), carried into the port's :class:`ParamTree` on ``device`` (default:
+    the CUDA device)."""
+    return C.params_from_numpy(tree, cfg.num_layers, device)
 
 
 # ---------------------------------------------------------------------------

@@ -133,11 +133,12 @@ class ServeEngine(SlotQueue):
         self.scfg = scfg
         self.device = resolve_device(_device_of(params))
 
-    def submit(self, prompt: np.ndarray) -> int:
-        """Queue a 1-D prompt of token ids; returns its request id. (The
-        reference's ``extras``, the VLM and audio inputs, wait for those
-        model families.)"""
-        return self._enqueue({"prompt": np.asarray(prompt)})
+    def submit(self, prompt: np.ndarray, extras: dict | None = None) -> int:
+        """Queue a 1-D prompt of token ids, with ``extras`` the request's
+        other model inputs (a vlm's ``patch_embeds`` (P, d_patch)); returns
+        its request id. A wave takes the extras' keys from its first
+        request and stacks each over the wave."""
+        return self._enqueue({"prompt": np.asarray(prompt), "extras": extras or {}})
 
     def _prefill_batch(self, requests: list[dict]):
         """Batched prefill over ragged prompts: shorter prompts are
@@ -153,9 +154,13 @@ class ServeEngine(SlotQueue):
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         if lens.min() != maxlen:
             batch["lens"] = torch.from_numpy(lens).to(self.device)
+        for k in requests[0]["extras"]:
+            batch[k] = torch.stack([torch.as_tensor(np.asarray(r["extras"][k]))
+                                    for r in requests]).to(self.device)
         cache = self.model.init_cache(self.cfg, b, self.scfg.max_seq, self.device)
         return self.model.prefill(self.params, batch, self.cfg, cache)
 
+    @torch.no_grad()
     def run(self) -> dict[int, list[int]]:
         """Drain the queue in waves of ``batch_slots``; returns {id: tokens}."""
         scfg = self.scfg

@@ -3,7 +3,8 @@ version, the pinned-slot reader, and the card's build and answers
 (in memory, out of core, through the wave plans, sharded four ways on one
 card, and through the store: append, query with the journal merged,
 compact), the banded-DTW kernel and ``dtw_knn``, the sanitized pinned
-reader, and RWKV-6 logits and tokens against the CPU's.
+reader, RWKV-6 logits and tokens against the CPU's, and the dense and vlm
+transformers' logits, tokens, train step and AdamW against the CPU's.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -29,6 +30,9 @@ bfloat16 tolerance; and bit for bit ``wkv6_fma_ref`` (NaNs compared as one
 word: the card's fmaf and the reference's float64 give NaNs other payloads).
 ``dtw_band``: bit for bit ``dtw_band_ref`` (each DP cell one rounded add of
 an exact minimum), so ``dtw_knn`` on the card equals the CPU's bit for bit.
+Transformers (float32 smoke configs): logits and metrics within 1e-4, each
+gradient within 1e-4 of its tensor's largest magnitude, and AdamW on the
+same gradients within 1e-6.
 """
 import itertools
 
@@ -52,8 +56,12 @@ from repro_torch.kernels import lb_sax as klb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import wkv6 as kwkv
+from repro_torch.device import resolve_device
+from repro_torch.models import common as TMC
 from repro_torch.models import get_model
 from repro_torch.models import rwkv6 as TR
+from repro_torch.train import optimizer as TO
+from repro_torch.train import train_step as TTS
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.storage import Hercules, build_index_to_disk
 from repro_torch.storage import codecs as TC
@@ -831,3 +839,76 @@ def test_sanitized_pinned_reader_equals_plain(cuda, monkeypatch):
     src = TP.ArrayChunkSource(data, 512)
     got = torch.cat([c for _, c in TP.iter_device_chunks(src, cuda, prefetch="thread")])
     np.testing.assert_array_equal(got.cpu().numpy(), data)
+
+
+def _dense_pair(cuda, arch):
+    """The smoke model's parameters made on the card, and a CPU copy."""
+    cfg = get_smoke(arch)
+    model = get_model(cfg)
+    gpu = model.init(torch.Generator(device=resolve_device(cuda)).manual_seed(0), cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), cfg)
+    cpu.load_state_dict(gpu.state_dict())
+    return cfg, model, gpu, cpu
+
+
+def _dense_batch(cfg, seed, b, t, device):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t))
+                                        .astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_patch)).astype(np.float32))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "granite-34b", "llama3-405b",
+                                  "phi-3-vision-4.2b"])
+def test_dense_smoke_on_the_card_equals_cpu(cuda, arch):
+    """Forward logits within 1e-4 and the same served greedy tokens."""
+    cfg, model, gpu, cpu = _dense_pair(cuda, arch)
+    batch = _dense_batch(cfg, 15, 3, 12, "cpu")
+    lg, _ = model.forward(gpu, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    lc, _ = model.forward(cpu, batch, cfg)
+    assert_close(lg, lc)
+    outs = []
+    for params in (gpu, cpu):
+        eng = ServeEngine(model, cfg, params, ServeConfig(max_seq=64, batch_slots=2,
+                                                          max_new_tokens=8))
+        for i, row in enumerate(batch["tokens"].numpy()):
+            extras = ({"patch_embeds": batch["patch_embeds"][i].numpy()}
+                      if cfg.family == "vlm" else None)
+            eng.submit(row, extras)
+        outs.append(eng.run())
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("moments", ["float32", "int8"])
+def test_train_step_on_the_card_equals_cpu(cuda, moments):
+    """One train step (microbatches 2): loss and metrics within 1e-4, the
+    gradients within 1e-4 of each tensor's largest magnitude, and AdamW on
+    the card's gradients (moved to the CPU for the CPU's update) within
+    1e-6."""
+    cfg, model, gpu, cpu = _dense_pair(cuda, "minicpm-2b")
+    tcfg = TTS.TrainConfig(optimizer=TO.AdamWConfig(learning_rate=1e-3, warmup_steps=1,
+                                                    moment_dtype=moments),
+                           microbatches=2)
+    batch = _dense_batch(cfg, 16, 4, 10, "cpu")
+    grad_fn = TTS.make_grad_fn(model, cfg, tcfg)
+    mg, gg = grad_fn(gpu, {k: v.to(cuda) for k, v in batch.items()})
+    mc, gc = grad_fn(cpu, batch)
+    for k in mc:
+        assert_close(mg[k], mc[k])
+    for a, b in zip(TMC.tree_leaves(gg), TMC.tree_leaves(gc)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+    sg = TO.adamw_init(gpu, tcfg.optimizer)
+    sc = TO.adamw_init(cpu, tcfg.optimizer)
+    _, sg, og = TO.adamw_update(gpu, gg, sg, tcfg.optimizer)
+    _, sc, oc = TO.adamw_update(cpu, TMC.tree_map(lambda g: g.cpu(), gg), sc, tcfg.optimizer)
+    for a, b in zip(gpu.parameters(), cpu.parameters()):
+        np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(),
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(float(og["grad_norm"]), float(oc["grad_norm"]), rtol=1e-6)
+    step = TTS.make_train_step(model, cfg, tcfg)
+    _, sg, metrics = step(gpu, sg, {k: v.to(cuda) for k, v in batch.items()})
+    assert np.isfinite(float(metrics["loss"])) and int(sg["step"]) == 2
