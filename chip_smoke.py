@@ -145,11 +145,35 @@ Phases (any failure ends the run with a non-zero exit):
    relative, AdamW on the same gradients within 1e-6); a smoke-size
    checkpoint written on the card and reloaded, training on within 1e-6 of
    an uninterrupted run; ``examples/torch_retrieval_lm.py``'s path on the
-   card, exact against brute force, ``lb_sax_matrix`` launched.
+   card, exact against brute force, ``lb_sax_matrix`` launched;
+17. mixture-of-experts serving at full width and depth, as phase 14 serves:
+   ``granite-moe-1b-a400m`` (24 layers, 32 experts top-8, float32
+   parameters) and ``moonshot-v1-16b-a3b`` (48 layers, 64 experts top-6,
+   28.06 B parameters held as a bf16 serving tree, 56.1 GB; peak under 80
+   GB); capacities 168 and 64 at S=512, 8 at decode; no kernel of the port
+   launches (experts, routing and combine are torch ops);
+18. MoE training: ``granite-moe-1b-a400m``, 6 steps at B=4, S=512 (AdamW,
+   float32 moments, remat, the auxiliary loss at 1e-2); loss, ``moe_aux``
+   and grad norm finite, the last loss below the first; TFLOP/s by 6*N*D
+   with N the 478,943,232 active parameters;
+19. ``rg_lru_scan`` equal to its plain version bit for bit at the Griffin
+   path's prefill (4, 512, 2560, nonzero h0) and decode (T=1) shapes, a
+   ragged shape and T=0, on the card and against the CPU; host-loop and
+   CUDA-graph times beside the plain version's and the bound;
+20. ``recurrentgemma-2b`` served at full width and depth as phase 14 serves
+   (26 layers, 18 recurrent, window 2048, 3,549,934,080 float32
+   parameters); ``rg_lru_scan`` must launch 18 x 32 x 2 = 1,152 times;
+21. the card against the CPU in float32: granite-moe at full width and 2
+   layers and moonshot at its smoke config (logits and aux within 1e-4,
+   the train step's metrics within 1e-4, each gradient within 1e-4 of its
+   tensor's largest magnitude), recurrentgemma at full width and 3 layers
+   (rec, rec, attn; a 64-token prefill and 4 decode steps within 1e-4,
+   tokens equal).
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
 ``device_ms``, a CUDA graph's time; the ``dtw_band`` row from phase 7b at
-1 x 4,096, its other shapes in the summary); then the card's ``nvidia-smi`` name
+1 x 4,096, its other shapes in the summary; ``rg_lru_scan`` at the prefill
+and decode shapes, each row with the run's launches); then the card's ``nvidia-smi`` name
 and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -451,6 +475,8 @@ def phase_adversarial():
 
 def reset_counters():
     from repro_torch.kernels import dtw as kdtw, ed as ked, lb_sax as klb, wkv6 as kwkv
+    from repro_torch.kernels import rg_lru as krg
+    krg.rg_lru_scan.launches = 0
     kdtw.dtw_band.launches = 0
     klb.lb_sax_matrix.launches = 0
     ked.ed_matrix.launches = 0
@@ -2309,41 +2335,47 @@ TRAIN_OPT = dict(learning_rate=3e-4, warmup_steps=1, total_steps=1000, schedule=
 
 
 def _all_launches() -> dict:
-    from repro_torch.kernels import dtw as kdtw, wkv6 as kwkv
-    return {**read_counters(), "wkv6": kwkv.wkv6.launches, "dtw_band": kdtw.dtw_band.launches}
+    from repro_torch.kernels import dtw as kdtw, rg_lru as krg, wkv6 as kwkv
+    return {**read_counters(), "wkv6": kwkv.wkv6.launches, "dtw_band": kdtw.dtw_band.launches,
+            "rg_lru_scan": krg.rg_lru_scan.launches}
 
 
-def phase_dense_serve(profile: bool = False):
-    """minicpm-2b at its published width and depth (40 layers, bf16 compute,
-    float32 parameters, random weights) through ``ServeEngine``: 8 requests
-    of 512-token prompts in two waves of 4, 32 new tokens each; logits
-    finite; the waves replayed step by step through ``prefill`` /
-    ``decode_step`` give the engine's tokens. Returns the phase's summary."""
-    import numpy as np
+def _init_on_card(tag: str, cfg, model, serving: bool = False):
+    """The model's random parameters (seed 0) made on the card, logged with
+    their count, bytes and seconds. Returns (params, count)."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import get_model
-    from repro_torch.serve import ServeConfig, ServeEngine
-
-    cfg = get_config(DENSE_ARCH)
-    model = get_model(cfg)
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    kwargs = {"serving": True} if serving else {}
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), cfg, **kwargs)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    check(n_params == cfg.param_count() + cfg.num_layers * 2 * cfg.d_model + cfg.d_model,
-          f"{DENSE_ARCH}: {n_params} parameters, not the analytic count plus the norms")
-    log(f"[dense] {DENSE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, d_ff "
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_heads} heads of "
         f"{cfg.resolved_head_dim} (kv {cfg.num_kv_heads}), {cfg.dtype} compute; {n_params} "
-        f"float32 parameters ({n_params * 4 / 2**30:.2f} GiB) made on the card in "
-        f"{time.perf_counter() - t0:.2f}s")
+        f"parameters ({'a serving tree, matrices in ' + cfg.dtype if serving else 'float32'}:"
+        f" {nbytes / 1e9:.2f} GB) made on the card in {time.perf_counter() - t0:.2f}s")
+    return params, n_params
+
+
+def _serve_lm(tag: str, cfg, model, params, want: dict, profile: bool = False) -> dict:
+    """LM_REQUESTS random LM_PROMPT-token prompts (seed 0) through
+    ``ServeEngine`` in waves of LM_SLOTS, LM_NEW new tokens each, after a
+    warm-up request (cuBLAS set-up, the weights' compute-dtype copies). The
+    served run's kernel launches must equal ``want`` (a kernel not named
+    there: 0). Then the same waves step by step through ``prefill`` /
+    ``decode_step``, timed: every logit finite, the tokens the engine's.
+    ``profile`` traces a prefill wave and a decode step. Returns the
+    summary; the peak is since the caller's last reset."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ServeConfig, ServeEngine
+
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
     eng = ServeEngine(model, cfg, params,
                       ServeConfig(max_seq=LM_PROMPT + LM_NEW + 8, batch_slots=LM_SLOTS,
                                   max_new_tokens=LM_NEW))
-    eng.submit(prompts[0, :16])          # warm-up: cuBLAS set-up, the bf16 weight copies
+    eng.submit(prompts[0, :16])
     eng.run()
     rids = [eng.submit(p) for p in prompts]
     reset_counters()
@@ -2354,11 +2386,11 @@ def phase_dense_serve(profile: bool = False):
     run_s = time.perf_counter() - t0
     launches = _all_launches()
     tokens = sum(len(out[r]) for r in rids)
-    log(f"[dense] served {len(out)} requests, {tokens} tokens in {run_s:.3f}s "
-        f"({tokens / run_s:.1f} tok/s); the port's kernels launched {launches} (none are "
-        f"on this path: attention, MLP and head are torch ops)")
-    check(all(c == 0 for c in launches.values()), f"kernels launched in the dense run: "
-                                                    f"{launches}")
+    log(f"[{tag}] served {len(out)} requests, {tokens} tokens in {run_s:.3f}s "
+        f"({tokens / run_s:.1f} tok/s); the port's kernels launched {launches} (want "
+        f"{want or 'none'}; attention, MLPs, experts and head are torch ops)")
+    check(all(c == want.get(k, 0) for k, c in launches.items()),
+          f"{cfg.name}: kernel launches {launches} in the served run, not {want or 'none'}")
     check(sorted(out) == rids and all(len(out[r]) == LM_NEW for r in rids),
           "the engine did not return LM_NEW tokens for every request")
 
@@ -2372,7 +2404,7 @@ def phase_dense_serve(profile: bool = False):
             lg, cache = model.prefill(params, {"tokens": toks[w0:w0 + LM_SLOTS]}, cfg, cache)
             torch.cuda.synchronize()
             prefill_ms.append(1e3 * (time.perf_counter() - t0))
-            check(bool(torch.isfinite(lg).all()), "dense prefill logits are not finite")
+            check(bool(torch.isfinite(lg).all()), f"{cfg.name} prefill logits are not finite")
             tok = torch.argmax(lg[:, -1], dim=-1)
             seq = [tok]
             for _ in range(LM_NEW - 1):
@@ -2381,29 +2413,49 @@ def phase_dense_serve(profile: bool = False):
                 tok = torch.argmax(lg[:, 0], dim=-1)
                 torch.cuda.synchronize()
                 decode_ms.append(1e3 * (time.perf_counter() - t0))
-                check(bool(torch.isfinite(lg).all()), "dense decode logits are not finite")
+                check(bool(torch.isfinite(lg).all()), f"{cfg.name} decode logits are not finite")
                 seq.append(tok)
             check(torch.stack(seq, 1).tolist() == [out[r] for r in rids[w0:w0 + LM_SLOTS]],
-                  f"the dense wave at {w0} driven step by step differs from the engine's")
+                  f"{cfg.name}: the wave at {w0} driven step by step differs from the "
+                  f"engine's tokens")
         if profile:
             batch = {"tokens": toks[:LM_SLOTS]}
-            trace(f"{DENSE_ARCH} prefill of a 4 x {LM_PROMPT} wave",
+            trace(f"{cfg.name} prefill of a 4 x {LM_PROMPT} wave",
                   lambda: model.prefill(params, batch, cfg,
                                         model.init_cache(cfg, LM_SLOTS, LM_PROMPT + 2, "cuda")))
             lg, cache = model.prefill(params, batch, cfg,
                                       model.init_cache(cfg, LM_SLOTS, LM_PROMPT + 2, "cuda"))
             nxt = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
-            trace(f"{DENSE_ARCH} decode step, 4 rows",
+            trace(f"{cfg.name} decode step, 4 rows",
                   lambda: model.decode_step(params, nxt, cfg, cache))
     dec = sorted(decode_ms)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[dense] prefill of a 4 x {LM_PROMPT} wave: {prefill_ms[0]:.2f} / "
+    log(f"[{tag}] {cfg.name} prefill of a 4 x {LM_PROMPT} wave: {prefill_ms[0]:.2f} / "
         f"{prefill_ms[1]:.2f} ms; decode step (4 rows): median {dec[len(dec) // 2]:.3f} ms, "
         f"min {dec[0]:.3f}, max {dec[-1]:.3f} over {len(dec)} steps; every logit finite; "
         f"step-by-step tokens equal the engine's; peak device memory {peak:.2f} GiB")
-    return {"params": n_params, "run_s": run_s, "tok_per_s": tokens / run_s,
-            "prefill_ms": prefill_ms, "decode_ms_median": dec[len(dec) // 2],
-            "peak_gib": peak}
+    return {"run_s": run_s, "tok_per_s": tokens / run_s, "prefill_ms": prefill_ms,
+            "decode_ms_median": dec[len(dec) // 2], "decode_ms_min": dec[0],
+            "peak_gib": peak, "launches": launches}
+
+
+def phase_dense_serve(profile: bool = False):
+    """minicpm-2b at its published width and depth (40 layers, bf16 compute,
+    float32 parameters, random weights) through ``ServeEngine``: 8 requests
+    of 512-token prompts in two waves of 4, 32 new tokens each; logits
+    finite; the waves replayed step by step through ``prefill`` /
+    ``decode_step`` give the engine's tokens. Returns the phase's summary."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(DENSE_ARCH)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params = _init_on_card("dense", cfg, model)
+    check(n_params == cfg.param_count() + cfg.num_layers * 2 * cfg.d_model + cfg.d_model,
+          f"{DENSE_ARCH}: {n_params} parameters, not the analytic count plus the norms")
+    return {"params": n_params, **_serve_lm("dense", cfg, model, params, {}, profile)}
 
 
 def phase_dense_train(profile: bool = False):
@@ -2498,7 +2550,6 @@ def phase_dense_cpu_agreement():
     import dataclasses
     import shutil
     import tempfile
-    import numpy as np
     import torch
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.launch.train import synth_batch
@@ -2507,32 +2558,16 @@ def phase_dense_cpu_agreement():
     from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init, adamw_update,
                                    load_checkpoint, make_train_step, save_checkpoint)
     from repro_torch.train.optimizer import global_norm
-    from repro_torch.train.train_step import init_train_state, make_grad_fn
+    from repro_torch.train.train_step import init_train_state
 
     cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2, dtype="float32")
     model = get_model(cfg)
     tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
     gpu = model.init(torch.Generator(device="cuda").manual_seed(1), cfg)
     cpu = model.params_from_numpy(C.stack_tree(gpu.tree()), cfg, "cpu")
-    batch = synth_batch(1, 0, cfg, 2, 32, "cpu")
     t0 = time.perf_counter()
-    with torch.no_grad():
-        err_logits = assert_close(model.forward(gpu, {k: v.cuda() for k, v in batch.items()},
-                                                cfg)[0],
-                                  model.forward(cpu, batch, cfg)[0], "float32",
-                                  f"{DENSE_ARCH} 2 layers: card vs CPU logits")
-    grad_fn = make_grad_fn(model, cfg, tcfg)
-    mg, gg = grad_fn(gpu, {k: v.cuda() for k, v in batch.items()})
-    mc, gc = grad_fn(cpu, batch)
-    for k in mc:
-        assert_close(mg[k], mc[k], "float32", f"train-step metric {k}: card vs CPU")
-    worst = 0.0
-    for (path, gs), (_, cs) in zip(C.leaf_groups(gg), C.leaf_groups(gc)):
-        for a, b in zip(gs, cs):
-            rel = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-            worst = max(worst, rel)
-            check(rel <= 1e-4, f"gradient {'/'.join(path)}: card vs CPU differ by {rel:.3e} "
-                               f"of its largest magnitude")
+    errs, gg, gc = _card_vs_cpu_train(cfg, model, gpu, cpu, "dense-agree",
+                                      f"{DENSE_ARCH} full width, 2 layers")
     ng, nc = float(global_norm(gg)), float(global_norm(gc))
     check(abs(ng - nc) <= 1e-4 * nc, f"grad norm card {ng} vs CPU {nc}")
     gg_cpu = C.tree_map(lambda g: g.cpu(), gg)
@@ -2543,10 +2578,7 @@ def phase_dense_cpu_agreement():
         err = float((a.detach().cpu() - b.detach()).abs().max())
         err_adam = max(err_adam, err)
         check(err <= 1e-6, f"AdamW on the same gradients: card vs CPU params differ by {err:.3e}")
-    log(f"[dense-agree] {DENSE_ARCH} full width, 2 layers, float32, B=2 S=32: logits max abs "
-        f"err {err_logits:.3e}, loss {float(mg['loss']):.6f} vs {float(mc['loss']):.6f}, "
-        f"gradients within {worst:.3e} of each tensor's largest magnitude, grad norm "
-        f"{ng:.6f} vs {nc:.6f}, AdamW params within {err_adam:.3e} "
+    log(f"[dense-agree] grad norm {ng:.6f} vs {nc:.6f}, AdamW params within {err_adam:.3e} "
         f"({time.perf_counter() - t0:.2f}s)")
     del gpu, cpu, gg, gc, gg_cpu
     torch.cuda.empty_cache()
@@ -2603,8 +2635,318 @@ def phase_dense_cpu_agreement():
         f"{float(metrics['loss']):.4f}, 2048 corpus and 5 prompt embeddings, exact k=3 kNN "
         f"equal to brute force (ids equal, dists within 1e-3); launches {launches} "
         f"({time.perf_counter() - t0:.2f}s)")
-    return {"logits_err": err_logits, "grad_rel_err": worst, "adamw_err": err_adam,
-            "ckpt_err": err_ckpt, "retrieval_launches": launches}
+    return {**errs, "adamw_err": err_adam, "ckpt_err": err_ckpt,
+            "retrieval_launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-experts and Griffin families, and the rg_lru_scan kernel
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b")
+SERVING_TREE = "moonshot-v1-16b-a3b"    # 112.2 GB in float32: served as a bf16 tree
+MOE_CAPACITY = {"granite-moe-1b-a400m": 168, "moonshot-v1-16b-a3b": 64}   # at S=512
+GRIFFIN_ARCH = "recurrentgemma-2b"
+GRIFFIN_PARAMS = 3_549_934_080         # the tree; param_count() leaves out the gates
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+MOE_TRAIN_OPT = dict(learning_rate=3e-4, warmup_steps=1, total_steps=1000)
+RG_SHAPES = {"prefill": (LM_SLOTS, LM_PROMPT, 2560), "decode": (LM_SLOTS, 1, 2560)}
+
+
+def _analytic_count(cfg) -> int:
+    """``param_count()`` plus the norm gains (two a layer and the final
+    one), which the formula leaves out."""
+    return cfg.param_count() + cfg.num_layers * 2 * cfg.d_model + cfg.d_model
+
+
+def phase_moe_serve(profile: bool = False):
+    """granite-moe-1b-a400m (float32 parameters) and moonshot-v1-16b-a3b (a
+    serving tree: matrices held in bf16 only, 56.1 GB) at their published
+    widths and depths, random weights, through ``ServeEngine`` as phase 14
+    serves minicpm; capacities 168 and 64 at S=512, 8 at decode; no kernel
+    of the port launches; moonshot's peak under 80 GB. ``profile`` traces a
+    moonshot prefill wave and decode step. Returns the summaries by arch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.moe import moe_capacity
+
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        serving = arch == SERVING_TREE
+        caps = (moe_capacity(cfg, LM_PROMPT), moe_capacity(cfg, 1))
+        check(caps == (MOE_CAPACITY[arch], 8), f"{arch}: capacities {caps} at S={LM_PROMPT} "
+                                               f"and 1, not ({MOE_CAPACITY[arch]}, 8)")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, n_params = _init_on_card("moe", cfg, model, serving)
+        check(n_params == _analytic_count(cfg),
+              f"{arch}: {n_params} parameters, not the analytic count plus the norms")
+        s = _serve_lm("moe", cfg, model, params, {}, profile and serving)
+        peak_bytes = s["peak_gib"] * 2**30
+        if serving:
+            check(peak_bytes < 80e9, f"{arch}: peak {peak_bytes / 1e9:.2f} GB, not under 80 GB")
+        out[arch] = {"params": n_params, "serving_tree": serving, "capacity": caps,
+                     "peak_gb": peak_bytes / 1e9, **s}
+        del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_train(profile: bool = False):
+    """granite-moe-1b-a400m trained at its published width and depth:
+    TRAIN_STEPS steps of ``make_train_step`` (AdamW, float32 moments, remat,
+    the MoE auxiliary loss at weight 1e-2) at B=4, S=512 on one repeated
+    ``synth_batch``; loss, ``moe_aux`` and grad norm finite, the last loss
+    below the first; TFLOP/s by 6*N*D with N the active parameters. Returns
+    the summary."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, TrainConfig, make_train_step
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    check(cfg.remat, f"{MOE_TRAIN_ARCH}'s config trains with remat")
+    n_active = cfg.active_param_count()
+    check(n_active == 478_943_232, f"{MOE_TRAIN_ARCH}: {n_active} active parameters")
+    model = get_model(cfg)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**MOE_TRAIN_OPT))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(model, cfg, tcfg,
+                                   torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, cfg, tcfg)
+    batch = synth_batch(0, 0, cfg, TRAIN_B, TRAIN_S, "cuda")
+    losses, auxes, gnorms, step_s = [], [], [], []
+    reset_counters()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        auxes.append(float(metrics["moe_aux"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = _all_launches()
+    check(all(math.isfinite(v) for v in losses + auxes + gnorms),
+          f"MoE train losses {losses}, aux {auxes} or grad norms {gnorms} not finite")
+    check(losses[-1] < losses[0], f"the MoE loss did not fall over {TRAIN_STEPS} steps: "
+                                  f"{losses}")
+    check(all(c == 0 for c in launches.values()), f"kernels launched in MoE training: "
+                                                    f"{launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_B * TRAIN_S
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    flops = 6 * n_active * tokens
+    log(f"[moe-train] {MOE_TRAIN_ARCH} full width and depth, B={TRAIN_B} S={TRAIN_S}, remat, "
+        f"bf16 compute, float32 params and moments, AdamW {MOE_TRAIN_OPT}: losses "
+        f"{[round(v, 4) for v in losses]}, moe_aux {[round(v, 4) for v in auxes]}, grad "
+        f"norms {[round(v, 4) for v in gnorms]}; step s {[round(v, 3) for v in step_s]} "
+        f"(median after the first {med:.3f}s, {tokens / med:.1f} tokens/s, "
+        f"{flops / med / 1e12:.1f} TFLOP/s by 6*N*D, N={n_active} active); peak device "
+        f"memory {peak:.2f} GiB")
+    if profile:
+        trace(f"{MOE_TRAIN_ARCH} train step, B={TRAIN_B} S={TRAIN_S}",
+              lambda: step(params, opt, batch))
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "moe_aux": auxes, "grad_norms": gnorms, "step_s": step_s,
+            "step_s_median": med, "tokens_per_s": tokens / med,
+            "tflops_6nd": flops / med / 1e12, "peak_gib": peak}
+
+
+def _rg_cost(b, t, r):
+    """(bytes, operations) of the scan: a and g read and y written once (4
+    bytes each), h0 read and hT written once; a multiply and an add an
+    element."""
+    return 12 * b * t * r + 8 * b * r, 2 * b * t * r
+
+
+def phase_rg_lru_kernel():
+    """``rg_lru_scan`` equal to its plain version ``rg_lru_scan_ref`` in
+    every bit on the card (and to the plain version on the CPU) at the
+    Griffin path's prefill (4, 512, 2560) shape with a nonzero h0, its
+    decode shape (T=1), a ragged shape and T=0; host-loop and CUDA-graph
+    times at both main shapes beside the plain version's and the bound.
+    Returns the kernel's rows at the prefill and decode shapes (their
+    launches are filled in by phase 20)."""
+    import torch
+    from repro_torch.kernels import ref, rg_lru as krg
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    args = {}
+    for kind, shape in {**RG_SHAPES, "ragged": (3, 37, 77), "empty": (2, 0, 5)}.items():
+        b, t, r = shape
+        a = torch.rand((b, t, r), generator=g, device="cuda")
+        gated = torch.randn((b, t, r), generator=g, device="cuda")
+        h0 = torch.randn((b, r), generator=g, device="cuda")
+        args[kind] = (a, gated, h0)
+        got = krg.rg_lru_scan(a, gated, h0)
+        for name, x, want, cpu in zip(("y", "hT"), got, ref.rg_lru_scan_ref(a, gated, h0),
+                                      ref.rg_lru_scan_ref(a.cpu(), gated.cpu(), h0.cpu())):
+            bad = int((words32(x) != words32(want)).sum())
+            check(bad == 0, f"rg_lru_scan {kind} {shape}: {bad} {name} words differ from "
+                            f"rg_lru_scan_ref on the card")
+            bad = int((words32(x).cpu() != words32(cpu)).sum())
+            check(bad == 0, f"rg_lru_scan {kind} {shape}: {bad} {name} words differ from "
+                            f"rg_lru_scan_ref on the CPU")
+    torch.cuda.synchronize()
+    log(f"[rg_lru] rg_lru_scan equals rg_lru_scan_ref bit for bit (on the card and on the "
+        f"CPU) at {RG_SHAPES['prefill']} with a nonzero h0, {RG_SHAPES['decode']}, "
+        f"(3, 37, 77) and T=0")
+    by_shape = {}
+    for kind, shape in RG_SHAPES.items():
+        a = args[kind]
+        nbytes, ops = _rg_cost(*shape)
+        reps = 50 if kind == "prefill" else 500
+        r = dict(shape=list(shape), bytes=nbytes, ops=ops,
+                 ms=time_ms(lambda a=a: krg.rg_lru_scan(*a), reps=reps, warmup=2),
+                 device_ms=device_ms(lambda a=a: krg.rg_lru_scan(*a), reps=reps),
+                 plain_ms=time_ms(lambda a=a: ref.rg_lru_scan_ref(*a), reps=3 if
+                                  kind == "prefill" else 100, warmup=1))
+        _bound(r)
+        by_shape[kind] = r
+    rows = [dict(name="rg_lru_scan", route="cuda", source="src/repro_torch/kernels/csrc/rg_lru.cu",
+                 replaces="src/repro/models/recurrentgemma.py:114 (_rg_lru's lax.scan; "
+                          "reference code outside Pallas, no TPU kernel)",
+                 launches=None, max_abs_err=0.0, library_ms=None, **r)
+            for r in by_shape.values()]
+    log("[timing] rg_lru_scan, library none; host loop / device / plain (bound): " + "; ".join(
+        f"{kind} {r['shape']} {r['ms']:.4f} / {r['device_ms']:.4f} / {r['plain_ms']:.4f} "
+        f"({r['bound_ms']:.5f} by {r['bound_by']}, {r['bound_ms'] / r['device_ms']:.1%})"
+        for kind, r in by_shape.items()))
+    return rows
+
+
+def phase_griffin_serve(profile: bool = False):
+    """recurrentgemma-2b at its published width and depth (26 layers, 18
+    recurrent, window 2048; float32 parameters, bf16 compute, random
+    weights) through ``ServeEngine`` as phase 14 serves minicpm;
+    ``rg_lru_scan`` must launch 18 x (1 + 31) x 2 = 1,152 times in the
+    served run. Returns the summary."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.recurrentgemma import _pattern
+
+    cfg = get_config(GRIFFIN_ARCH)
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params = _init_on_card("griffin", cfg, model)
+    check(n_params == GRIFFIN_PARAMS, f"{GRIFFIN_ARCH}: {n_params} parameters in the tree, "
+                                      f"not {GRIFFIN_PARAMS}")
+    n_rec = sum(kind == "rec" for kind in _pattern(cfg))
+    want = n_rec * LM_NEW * (LM_REQUESTS // LM_SLOTS)
+    log(f"[griffin] {n_rec} recurrent layers; param_count() {cfg.param_count()} (the "
+        f"reference's formula, without w_input_gate and w_rec_gate)")
+    out = {"params": n_params, "param_count": cfg.param_count(), "rec_layers": n_rec,
+           **_serve_lm("griffin", cfg, model, params, {"rg_lru_scan": want}, profile)}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _card_vs_cpu_train(cfg, model, gpu, cpu, tag: str, what: str):
+    """Forward logits and aux, the train step's metrics and gradients of
+    ``gpu`` (on the card) against ``cpu`` (the same weights on the CPU), in
+    float32, B=2 S=32: logits, aux and metrics within 1e-4, each gradient
+    within 1e-4 of its tensor's largest magnitude. Returns (errors, the
+    card's gradients, the CPU's)."""
+    import torch
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import common as C
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.train_step import make_grad_fn
+
+    batch = synth_batch(1, 0, cfg, 2, 32, "cpu")
+    with torch.no_grad():
+        lg, ag = model.forward(gpu, {k: v.cuda() for k, v in batch.items()}, cfg)
+        lc, ac = model.forward(cpu, batch, cfg)
+    err = assert_close(lg, lc, "float32", f"{what}: card vs CPU logits")
+    assert_close(ag, ac, "float32", f"{what}: card vs CPU aux")
+    grad_fn = make_grad_fn(model, cfg, TrainConfig())
+    mg, gg = grad_fn(gpu, {k: v.cuda() for k, v in batch.items()})
+    mc, gc = grad_fn(cpu, batch)
+    for k in mc:
+        assert_close(mg[k], mc[k], "float32", f"{what}: train-step metric {k}, card vs CPU")
+    worst = 0.0
+    for (path, gs), (_, cs) in zip(C.leaf_groups(gg), C.leaf_groups(gc)):
+        for a, b in zip(gs, cs):
+            rel = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            worst = max(worst, rel)
+            check(rel <= 1e-4, f"{what}: gradient {'/'.join(path)}, card vs CPU differ by "
+                               f"{rel:.3e} of its largest magnitude")
+    log(f"[{tag}] {what}, float32, B=2 S=32: logits max abs err {err:.3e}, aux "
+        f"{float(ag):.6f} vs {float(ac):.6f}, "
+        + ", ".join(f"{k} {float(mg[k]):.6f} vs {float(mc[k]):.6f}"
+                    for k in ("loss", "moe_aux") if k in mc)
+        + f", gradients within {worst:.3e} of each tensor's largest magnitude")
+    return {"logits_err": err, "grad_rel_err": worst}, gg, gc
+
+
+def phase_moe_griffin_cpu_agreement():
+    """The card against the CPU in float32: granite-moe at full width and 2
+    layers and moonshot at its smoke config (logits, aux, the train step's
+    loss and metrics, gradients; ``_card_vs_cpu_train``), and recurrentgemma
+    at full width and 3 layers (rec, rec, attn): a 64-token prefill and 4
+    decode steps, logits within 1e-4, tokens equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import get_model
+
+    out = {}
+    for tag, cfg in ((f"{MOE_TRAIN_ARCH} full width, 2 layers",
+                      dataclasses.replace(get_config(MOE_TRAIN_ARCH), num_layers=2,
+                                          dtype="float32")),
+                     ("moonshot-v1-16b-a3b smoke", get_smoke("moonshot-v1-16b-a3b"))):
+        model = get_model(cfg)
+        gpu = model.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+        cpu = model.params_from_numpy(gpu.tree(), cfg, "cpu")
+        out[tag] = _card_vs_cpu_train(cfg, model, gpu, cpu, "moe-agree", tag)[0]
+        del gpu, cpu
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config(GRIFFIN_ARCH), num_layers=3, dtype="float32")
+    model = get_model(cfg)
+    gpu = model.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 64)).astype(np.int32))
+    runs = {}
+    with torch.no_grad():
+        for dev, params in (("cuda", gpu), ("cpu", model.params_from_numpy(gpu.tree(), cfg,
+                                                                            "cpu"))):
+            t0 = time.perf_counter()
+            lg, cache = model.prefill(params, {"tokens": prompt.to(dev)}, cfg,
+                                      model.init_cache(cfg, 1, 72, dev))
+            logits, toks = [lg[0, -1].cpu()], [int(torch.argmax(lg[0, -1]))]
+            for _ in range(4):
+                lg, cache = model.decode_step(
+                    params, torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev), cfg,
+                    cache)
+                logits.append(lg[0, 0].cpu())
+                toks.append(int(torch.argmax(lg[0, 0])))
+            runs[dev] = (torch.stack(logits), toks, time.perf_counter() - t0)
+    err = assert_close(runs["cuda"][0], runs["cpu"][0], "float32",
+                       f"{GRIFFIN_ARCH} full width, 3 layers: card vs CPU logits")
+    check(runs["cuda"][1] == runs["cpu"][1],
+          f"{GRIFFIN_ARCH} card tokens {runs['cuda'][1]} differ from the CPU's "
+          f"{runs['cpu'][1]}")
+    log(f"[griffin-agree] full width, 3 layers (rec, rec, attn), float32: the card's logits "
+        f"are within 1e-4 of the CPU's (max abs err {err:.3e}) over a 64-token prefill and 4 "
+        f"decode steps; tokens equal {runs['cuda'][1]} (card {runs['cuda'][2]:.2f}s, CPU "
+        f"{runs['cpu'][2]:.2f}s)")
+    out[GRIFFIN_ARCH] = {"logits_err": err}
+    del gpu
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -2613,8 +2955,9 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--profile", action="store_true",
                     help="also trace 16 queries per backend, a prefill wave and a "
-                         "decode step of rwkv6-7b and of minicpm-2b, and a minicpm-2b "
-                         "train step, with torch.profiler")
+                         "decode step of rwkv6-7b, of minicpm-2b and of "
+                         "moonshot-v1-16b-a3b, and a minicpm-2b train step, with "
+                         "torch.profiler")
     ap.add_argument("--disk-dir", default=None,
                     help="directory for the disk phase's index (default: a new "
                          "temporary directory); removed at the end")
@@ -2763,6 +3106,17 @@ def main(argv=None) -> int:
     summary["dense_agree"] = timed("dense_agree", phase_dense_cpu_agreement)
     log(f"[dense] phases 14-16 took {phase_s['dense_serve']} / {phase_s['dense_train']} / "
         f"{phase_s['dense_agree']}s")
+    torch.cuda.empty_cache()
+    summary["moe_serve"] = timed("moe_serve", phase_moe_serve, args.profile)
+    summary["moe_train"] = timed("moe_train", phase_moe_train)
+    rg_rows = timed("rg_lru", phase_rg_lru_kernel)
+    summary["griffin_serve"] = timed("griffin_serve", phase_griffin_serve)
+    for r in rg_rows:
+        r["launches"] = summary["griffin_serve"]["launches"]["rg_lru_scan"]
+    rows += rg_rows
+    summary["moe_griffin_agree"] = timed("moe_griffin_agree", phase_moe_griffin_cpu_agreement)
+    log(f"[moe] phases 17-21 took {phase_s['moe_serve']} / {phase_s['moe_train']} / "
+        f"{phase_s['rg_lru']} / {phase_s['griffin_serve']} / {phase_s['moe_griffin_agree']}s")
     log(f"[main] summary {json.dumps(summary)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -3,7 +3,8 @@
 Each function resolves ``mode`` (``auto | cuda | ref``, see
 :mod:`repro_torch.kernels.compat`) against the device of its tensors and
 runs either the hand-written CUDA kernel or its plain PyTorch version. The
-CUDA kernels mask their own ragged edges (and ``wkv6`` loops over any T),
+CUDA kernels mask their own ragged edges (and ``wkv6`` and ``rg_lru_scan``
+loop over any T),
 so unlike the reference's wrappers nothing is padded to block multiples
 here.
 """
@@ -15,6 +16,7 @@ from repro_torch.core import summaries as S
 from repro_torch.kernels import ed as _ed
 from repro_torch.kernels import lb_sax as _lb
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rg_lru as _rg_lru
 from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels.compat import resolve_kernel_mode
 
@@ -84,3 +86,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if resolve_kernel_mode(mode, _device(r, k, v, w, u, state)) == "ref":
         return _ref.wkv6_ref(r, k, v, w, u, state)
     return _wkv6.wkv6(r, k, v, w, u, state)
+
+
+def rg_lru_scan(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor, *,
+                mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU's scan ``h_t = a_t * h_{t-1} + g_t``: a, g (B, T, R), h0
+    (B, R), float32 -> (y (B, T, R), hT (B, R)) float32. Kernel and plain
+    version agree bit for bit."""
+    if resolve_kernel_mode(mode, _device(a, g, h0)) == "ref":
+        return _ref.rg_lru_scan_ref(a, g, h0)
+    return _rg_lru.rg_lru_scan(a, g, h0)

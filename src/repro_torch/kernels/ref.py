@@ -2,7 +2,9 @@
 
 Each mirrors one kernel's contract (shapes, dtypes, masking) with
 straight-line tensor code in the direct-sum form of
-``repro/kernels/ref.py`` (``wkv6_ref``: a plain loop over T). They are what
+``repro/kernels/ref.py`` (``wkv6_ref``: a plain loop over T), or of the
+reference's model code where the kernel has no Pallas twin
+(``dtw_band_ref``, ``rg_lru_scan_ref``). They are what
 a CPU tensor runs, and what the card checks each kernel against. Work over the series axis is cut into row
 blocks so the ``(Q, rows, n)`` difference tensor stays bounded at the main
 path's shapes; blocking changes no arithmetic (each output element is one
@@ -205,6 +207,25 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         wd = wt[..., :, None]
         s = torch.where(wd == 0.0, kv, wd * s + kv)
     return out, s
+
+
+def rg_lru_scan_ref(a: torch.Tensor, g: torch.Tensor,
+                    h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU's linear scan, a plain loop over T (the ``lax.scan`` of
+    ``repro/models/recurrentgemma.py::_rg_lru``).
+
+    a, g (B, T, R) and h0 (B, R), float32. Per step ``h_t = a_t * h_{t-1} +
+    g_t``: one rounded multiply, then one rounded add (no fused
+    multiply-add), the arithmetic of ``csrc/rg_lru.cu`` bit for bit.
+    Returns (y (B, T, R) the h_t, hT (B, R)), float32. Differentiable (the
+    reference's scan is, under ``jax.grad``)."""
+    h = h0
+    ys = []
+    for t in range(a.shape[1]):
+        h = torch.add(torch.mul(a[:, t], h), g[:, t])
+        ys.append(h)
+    y = torch.stack(ys, 1) if ys else a.new_empty(a.shape)
+    return y, h
 
 
 _WKV_SPLIT = 4      # partial sums per state column in csrc/wkv6.cu

@@ -4,13 +4,19 @@
         --requests 8 --prompt-len 512 --new-tokens 32 --slots 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b --smoke \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
+        --prompt-len 512 --new-tokens 32
 
-Builds the arch (any registered dense, vlm or ssm arch) with random
-weights (seed 0) on the CUDA device (``--device cpu`` for the host;
+Builds the arch (any registered arch: dense, vlm, moe, ssm or hybrid) with
+random weights (seed 0) on the CUDA device (``--device cpu`` for the host;
 ``--smoke`` for the reduced config), queues random prompts (a vlm request
 also carries random patch embeddings), serves them greedily through
 ``ServeEngine`` and reports requests, tokens, seconds and tokens per
-second.
+second. It only serves, so the parameters are a serving tree wherever the
+model builds one (each matrix held in the compute dtype only: the same
+bits in half the bytes, and moonshot-v1-16b-a3b's 28 B parameters fit one
+card only so); RWKV-6 reads its mixing and decay parameters in float32 and
+builds none.
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     model = get_model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    kwargs = {} if cfg.family == "ssm" else {"serving": True}
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg, **kwargs)
     eng = ServeEngine(model, cfg, params,
                       ServeConfig(max_seq=args.prompt_len + args.new_tokens + 8,
                                   batch_slots=args.slots,

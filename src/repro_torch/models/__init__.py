@@ -1,8 +1,8 @@
 """Model registry: ArchConfig -> ModelDef dispatch (``repro/models/__init__.py``).
 
-The port runs the ``dense`` and ``vlm`` families (``transformer``) and the
-``ssm`` family (RWKV-6). The reference's ``moe``, ``hybrid`` and ``audio``
-families are still to port (``ROADMAP.md``).
+The port runs the ``dense``, ``vlm`` and ``moe`` families (``transformer``),
+the ``ssm`` family (RWKV-6) and the ``hybrid`` family (recurrentgemma). The
+reference's ``audio`` family (whisper) is still to port (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -24,11 +24,13 @@ class ModelDef:
 
 
 def get_model(cfg: ArchConfig) -> ModelDef:
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as m
     elif cfg.family == "ssm":
         from repro_torch.models import rwkv6 as m
-    elif cfg.family in ("moe", "hybrid", "audio"):
+    elif cfg.family == "hybrid":
+        from repro_torch.models import recurrentgemma as m
+    elif cfg.family == "audio":
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}) is not ported yet; see "
             "ROADMAP.md, queue 1 item 5")

@@ -156,12 +156,40 @@ def stack_tree(tree: dict) -> dict:
                 for path, ts in leaf_groups(tree))
 
 
+# Leaves the forward pass reads in float32 whatever the compute dtype (besides
+# the norm gains, ``ln*``): the MoE router and the RG-LRU's gates and decay.
+FLOAT32_LEAVES = ("router", "lambda", "w_input_gate", "b_input_gate", "w_rec_gate",
+                  "b_rec_gate")
+
+
+def hold(node: dict, dtype: torch.dtype) -> dict:
+    """A serving tree: in the nested dict ``node``, every tensor that the
+    forward pass reads through :meth:`ParamTree.mat` in the compute dtype
+    is replaced, in place and one tensor at a time, by its value rounded to
+    ``dtype`` (the same bits as rounding at each use, in half the bytes of
+    float32); the norm gains and :data:`FLOAT32_LEAVES` stay float32.
+    Serving only: such a tree is not trained. Returns ``node``."""
+    for key, val in node.items():
+        if isinstance(val, dict):
+            hold(val, dtype)
+        elif isinstance(val, list):
+            for v in val:
+                hold(v, dtype)
+        elif not (key.startswith("ln") or key in FLOAT32_LEAVES):
+            node[key] = val.to(dtype)
+    return node
+
+
 def params_from_numpy(tree: dict, num_layers: int,
-                      device: str | torch.device | None = None) -> ParamTree:
-    """A parameter tree in the reference's layout (``blocks`` stacked on a
-    leading layer axis, as ``jax.vmap`` leaves it), of numpy arrays or
+                      device: str | torch.device | None = None,
+                      held: torch.dtype | None = None) -> ParamTree:
+    """A parameter tree in the reference's layout, of numpy arrays or
     tensors, carried into a float32 :class:`ParamTree` on ``device``
-    (default: the CUDA device)."""
+    (default: the CUDA device). ``blocks`` is stacked on a leading layer
+    axis (as ``jax.vmap`` leaves it), or a list of layers (a model of mixed
+    layers, recurrentgemma's). With ``held``, a serving tree in that dtype
+    (:func:`hold`), each layer held as it is carried, so the float32
+    layers never exist on ``device`` together."""
     dev = resolve_device(device)
 
     def convert(node, layer=None):
@@ -173,9 +201,14 @@ def params_from_numpy(tree: dict, num_layers: int,
         arr = np.asarray(node, dtype=np.float32)
         return torch.tensor(arr if layer is None else arr[layer], device=dev)
 
+    def done(node):
+        return node if held is None else hold(node, held)
+
     out = {key: convert(val) for key, val in tree.items() if key != "blocks"}
-    out["blocks"] = [convert(tree["blocks"], i) for i in range(num_layers)]
-    return ParamTree(out)
+    blocks = tree["blocks"]
+    out["blocks"] = [done(convert(b)) for b in blocks] if isinstance(blocks, (list, tuple)) \
+        else [done(convert(blocks, i)) for i in range(num_layers)]
+    return ParamTree(done(out))
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +289,21 @@ def last_token_slice(x: torch.Tensor, batch: dict) -> torch.Tensor:
     off = x.shape[1] - batch["tokens"].shape[1]
     idx = off + torch.as_tensor(lens, device=x.device).long() - 1
     return torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))
+
+
+def embed_tokens(params: ParamTree, tokens: torch.Tensor, d_model: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Token embeddings in ``dtype`` scaled by sqrt(d_model) (that factor
+    rounded to ``dtype`` first, as the reference rounds it)."""
+    scale = float(torch.tensor(float(d_model), dtype=torch.float32).sqrt().to(dtype))
+    return params.mat("embed", dtype)[tokens.long()] * scale
+
+
+def lm_logits(params: ParamTree, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Final norm and LM head: compute-dtype operands, float32 accumulation
+    and output (a bf16 product would round the logits to bf16)."""
+    x = rms_norm(x, params.ln_final, eps)
+    return x.to(torch.float32) @ params.mat("lm_head", x.dtype).to(torch.float32)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -1,10 +1,13 @@
 """Decoder-only transformer family, dense / GQA / MQA and the VLM wrapper
 (``repro/models/transformer.py``).
 
-Covers codeqwen1.5-7b, granite-34b, llama3-405b, minicpm-2b (dense) and
-the phi-3-vision backbone (vlm). Per block (llama-style): RMSNorm ->
-attention (rotary, GQA) -> residual; RMSNorm -> SwiGLU (or GELU) MLP ->
-residual. The MoE archs wait for ``moe.py`` (``ROADMAP.md``).
+Covers codeqwen1.5-7b, granite-34b, llama3-405b, minicpm-2b (dense),
+granite-moe-1b-a400m, moonshot-v1-16b-a3b (moe) and the phi-3-vision
+backbone (vlm). Per block (llama-style): RMSNorm -> attention (rotary, GQA)
+-> residual; RMSNorm -> SwiGLU (or GELU) MLP, or the mixture of experts
+(``models/moe.py``, whose load-balancing losses ``forward`` adds up over
+the layers) -> residual. Prefill and decode run the same MoE block
+(capacity 8 at one token a row).
 
 Parameters are a :class:`repro_torch.models.common.ParamTree` with the
 reference's names, ``blocks`` a list of layers where the reference stacks
@@ -14,7 +17,11 @@ float32, float32 attention scores, and float32 logits from dtype-rounded
 operands. The layers run as a Python loop (the reference's ``lax.scan``);
 with ``cfg.remat`` and grad enabled each layer is recomputed in the
 backward pass (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
-The KV cache is written in place.
+The KV cache is written in place. ``init_params(..., serving=True)`` and
+``params_from_numpy(..., serving=True)`` build a serving tree
+(``common.hold``): each matrix held in the compute dtype only, layer by
+layer, for a model whose float32 tree does not fit on the card
+(moonshot-v1-16b-a3b: 112.2 GB in float32, 56.1 GB in bf16).
 """
 from __future__ import annotations
 
@@ -25,13 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import common as C
 from repro_torch.models.arch import ArchConfig
 from repro_torch.models.common import ParamTree
-
-
-def _no_moe(cfg: ArchConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers (moe.py) are not ported yet; "
-            "see ROADMAP.md, queue 1 item 5")
+from repro_torch.models.moe import init_moe, moe_forward
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -52,7 +53,6 @@ def _attn_spec(cfg: ArchConfig, seq_len: int, window: int = 0) -> C.AttnSpec:
 def init_block(generator: torch.Generator, cfg: ArchConfig) -> dict:
     """One layer's parameters, with the reference's names, shapes and
     scales."""
-    _no_moe(cfg)
     d, dev = cfg.d_model, generator.device
 
     def zeros(n):
@@ -61,7 +61,9 @@ def init_block(generator: torch.Generator, cfg: ArchConfig) -> dict:
     p = {"ln_attn": zeros(d),
          "attn": C.init_attention(generator, d, _attn_spec(cfg, 1)),
          "ln_mlp": zeros(d)}
-    if cfg.mlp_type == "gelu":
+    if cfg.num_experts:
+        p["moe"] = init_moe(generator, cfg)
+    elif cfg.mlp_type == "gelu":
         p["mlp"] = {"w_up": C.dense_init(generator, d, cfg.d_ff), "b_up": zeros(cfg.d_ff),
                     "w_down": C.dense_init(generator, cfg.d_ff, d), "b_down": zeros(d)}
     else:
@@ -71,29 +73,35 @@ def init_block(generator: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
-def init_params(generator: torch.Generator, cfg: ArchConfig) -> ParamTree:
+def init_params(generator: torch.Generator, cfg: ArchConfig, *,
+                serving: bool = False) -> ParamTree:
     """Random float32 parameters on the generator's device (the reference's
-    tree, keys and shapes; other numbers, as the generators differ)."""
-    _no_moe(cfg)
+    tree, keys and shapes; other numbers, as the generators differ). With
+    ``serving``, a serving tree in ``cfg.dtype`` (``common.hold``), each
+    layer held as soon as it is drawn."""
+    dtype = _dtype(cfg)
+    held = (lambda node: C.hold(node, dtype)) if serving else (lambda node: node)
     tree = {
         "embed": C.embed_init(generator, cfg.vocab_size, cfg.d_model),
-        "blocks": [init_block(generator, cfg) for _ in range(cfg.num_layers)],
+        "blocks": [held(init_block(generator, cfg)) for _ in range(cfg.num_layers)],
         "ln_final": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                 device=generator.device),
         "lm_head": C.dense_init(generator, cfg.d_model, cfg.vocab_size, scale=0.02),
     }
     if cfg.family == "vlm":
         tree["patch_proj"] = C.dense_init(generator, cfg.d_patch, cfg.d_model)
-    return ParamTree(tree)
+    return ParamTree(held(tree))
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig,
-                      device: str | torch.device | None = None) -> ParamTree:
+                      device: str | torch.device | None = None, *,
+                      serving: bool = False) -> ParamTree:
     """The reference's parameter tree, as numpy arrays or tensors
     (``blocks`` stacked on a leading layer axis), carried into the port's
-    :class:`ParamTree` on ``device`` (default: the CUDA device)."""
-    _no_moe(cfg)
-    return C.params_from_numpy(tree, cfg.num_layers, device)
+    :class:`ParamTree` on ``device`` (default: the CUDA device); with
+    ``serving``, a serving tree in ``cfg.dtype``."""
+    return C.params_from_numpy(tree, cfg.num_layers, device,
+                               _dtype(cfg) if serving else None)
 
 
 # ---------------------------------------------------------------------------
@@ -105,11 +113,13 @@ def _block_fwd(p: ParamTree, x: torch.Tensor, positions: torch.Tensor,
     h = C.rms_norm(x, p.ln_attn, cfg.norm_eps)
     x = x + C.attention_forward(p.attn, h, positions, spec, cfg.rope_theta)
     h = C.rms_norm(x, p.ln_mlp, cfg.norm_eps)
+    if cfg.num_experts:
+        y, aux = moe_forward(p.moe, h, cfg)
+        return x + y, aux
     return x + _mlp(p.mlp, h, cfg), torch.zeros((), device=x.device)
 
 
 def _mlp(mp: ParamTree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    _no_moe(cfg)
     dt = h.dtype
     if cfg.mlp_type == "gelu":
         return C.gelu_mlp(h, mp.mat("w_up", dt), mp.mat("b_up", dt),
@@ -117,30 +127,15 @@ def _mlp(mp: ParamTree, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return C.swiglu(h, mp.mat("w_gate", dt), mp.mat("w_up", dt), mp.mat("w_down", dt))
 
 
-def _embed_tokens(params: ParamTree, tokens: torch.Tensor, cfg: ArchConfig,
-                  dtype: torch.dtype) -> torch.Tensor:
-    """Token embeddings in ``dtype`` scaled by sqrt(d_model) (that factor
-    rounded to ``dtype`` first, as the reference rounds it)."""
-    scale = float(torch.tensor(float(cfg.d_model), dtype=torch.float32).sqrt().to(dtype))
-    return params.mat("embed", dtype)[tokens.long()] * scale
-
-
 def embed_inputs(params: ParamTree, batch: dict, cfg: ArchConfig,
                  dtype: torch.dtype) -> torch.Tensor:
     """Token embeddings; VLM prepends projected patch embeddings (stub
     frontend supplies ``patch_embeds`` (B, P, d_patch))."""
-    x = _embed_tokens(params, batch["tokens"], cfg, dtype)
+    x = C.embed_tokens(params, batch["tokens"], cfg.d_model, dtype)
     if cfg.family == "vlm":
         proj = batch["patch_embeds"].to(dtype) @ params.mat("patch_proj", dtype)
         x = torch.cat([proj, x], dim=1)
     return x
-
-
-def _logits(params: ParamTree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Final norm and LM head: compute-dtype operands, float32 accumulation
-    and output (a bf16 product would round the logits to bf16)."""
-    x = C.rms_norm(x, params.ln_final, cfg.norm_eps)
-    return x.to(torch.float32) @ params.mat("lm_head", x.dtype).to(torch.float32)
 
 
 def forward(params: ParamTree, batch: dict, cfg: ArchConfig):
@@ -158,7 +153,7 @@ def forward(params: ParamTree, batch: dict, cfg: ArchConfig):
     for p in params.blocks:
         x, a = checkpoint(layer, x, p, use_reentrant=False) if remat else layer(x, p)
         aux = aux + a
-    return _logits(params, x, cfg), aux
+    return C.lm_logits(params, x, cfg.norm_eps), aux
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +208,7 @@ def prefill(params: ParamTree, batch: dict, cfg: ArchConfig, cache: dict):
 def decode_step(params: ParamTree, tokens: torch.Tensor, cfg: ArchConfig, cache: dict):
     """One token step. tokens (B, 1). Returns (logits (B, 1, V), cache)."""
     dtype = _dtype(cfg)
-    x = _embed_tokens(params, tokens, cfg, dtype)
+    x = C.embed_tokens(params, tokens, cfg.d_model, dtype)
     pos = cache["pos"]
     spec = _attn_spec(cfg, 1, window=cfg.window)
     for i, p in enumerate(params.blocks):
@@ -222,5 +217,6 @@ def decode_step(params: ParamTree, tokens: torch.Tensor, cfg: ArchConfig, cache:
                                             spec, cfg.rope_theta)
         x = x + att
         h = C.rms_norm(x, p.ln_mlp, cfg.norm_eps)
-        x = x + _mlp(p.mlp, h, cfg)
-    return _logits(params, x, cfg), {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+        x = x + (moe_forward(p.moe, h, cfg)[0] if cfg.num_experts else _mlp(p.mlp, h, cfg))
+    return (C.lm_logits(params, x, cfg.norm_eps),
+            {"k": cache["k"], "v": cache["v"], "pos": pos + 1})

@@ -3,8 +3,9 @@ version, the pinned-slot reader, and the card's build and answers
 (in memory, out of core, through the wave plans, sharded four ways on one
 card, and through the store: append, query with the journal merged,
 compact), the banded-DTW kernel and ``dtw_knn``, the sanitized pinned
-reader, RWKV-6 logits and tokens against the CPU's, and the dense and vlm
-transformers' logits, tokens, train step and AdamW against the CPU's.
+reader, RWKV-6 logits and tokens against the CPU's, the dense, vlm and MoE
+transformers' logits, tokens, train step and AdamW against the CPU's, and
+the RG-LRU scan kernel and recurrentgemma against the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -28,11 +29,12 @@ reset on); bf16 r/k/v are widened exactly and the state holds 1e-4, while
 the bf16 output, rounded from float32 sums in another order, holds the
 bfloat16 tolerance; and bit for bit ``wkv6_fma_ref`` (NaNs compared as one
 word: the card's fmaf and the reference's float64 give NaNs other payloads).
-``dtw_band``: bit for bit ``dtw_band_ref`` (each DP cell one rounded add of
+``rg_lru_scan``: bit for bit ``rg_lru_scan_ref`` (a rounded multiply, then
+a rounded add, a step), on the card and on the CPU. ``dtw_band``: bit for bit ``dtw_band_ref`` (each DP cell one rounded add of
 an exact minimum), so ``dtw_knn`` on the card equals the CPU's bit for bit.
-Transformers (float32 smoke configs): logits and metrics within 1e-4, each
-gradient within 1e-4 of its tensor's largest magnitude, and AdamW on the
-same gradients within 1e-6.
+Transformers, MoE and Griffin (float32 smoke configs): logits, aux and
+metrics within 1e-4, each gradient within 1e-4 of its tensor's largest
+magnitude, and AdamW on the same gradients within 1e-6.
 """
 import itertools
 
@@ -55,6 +57,7 @@ from repro_torch.kernels import ed as ked
 from repro_torch.kernels import lb_sax as klb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rg_lru as krg
 from repro_torch.kernels import wkv6 as kwkv
 from repro_torch.device import resolve_device
 from repro_torch.models import common as TMC
@@ -912,3 +915,92 @@ def test_train_step_on_the_card_equals_cpu(cuda, moments):
     step = TTS.make_train_step(model, cfg, tcfg)
     _, sg, metrics = step(gpu, sg, {k: v.to(cuda) for k, v in batch.items()})
     assert np.isfinite(float(metrics["loss"])) and int(sg["step"]) == 2
+
+
+@pytest.mark.parametrize("b,t,r", [(4, 512, 2560), (4, 1, 2560), (3, 37, 77), (1, 9, 1),
+                                   (2, 0, 5)])
+def test_rg_lru_scan_kernel_equals_plain_bitwise(cuda, b, t, r):
+    """The Griffin path's prefill and decode shapes, ragged shapes (a
+    partial block, a chunk tail) and T=0: y and hT equal the plain version
+    in every bit, on the card and on the CPU."""
+    rng = np.random.default_rng(31)
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, (b, t, r)).astype(np.float32))
+    g = randn(32, b, t, r)
+    h0 = randn(33, b, r)
+    before = krg.rg_lru_scan.launches
+    got = tops.rg_lru_scan(a.to(cuda), g.to(cuda), h0.to(cuda))
+    assert krg.rg_lru_scan.launches == before + (1 if t else 0)
+    for x, want, cpu in zip(got, tref.rg_lru_scan_ref(a.to(cuda), g.to(cuda), h0.to(cuda)),
+                            tref.rg_lru_scan_ref(a, g, h0)):
+        assert torch.equal(x.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(x.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def test_rg_lru_scan_kernel_refuses_what_it_cannot_take(cuda):
+    a, g, h0 = randn(34, 2, 3, 4).to(cuda), randn(35, 2, 3, 4).to(cuda), randn(36, 2, 4).to(cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        krg.rg_lru_scan(a.cpu(), g, h0)
+    with pytest.raises(TypeError, match="float32"):
+        krg.rg_lru_scan(a.double(), g, h0)
+    with pytest.raises(ValueError, match="shapes"):
+        krg.rg_lru_scan(a, g, h0[:1])
+    with pytest.raises(NotImplementedError, match="no backward"):
+        krg.rg_lru_scan(a.requires_grad_(True), g, h0)
+
+
+def _smoke_pair(cuda, arch):
+    """The smoke model's parameters made on the card, and a CPU copy."""
+    cfg = get_smoke(arch)
+    model = get_model(cfg)
+    gpu = model.init(torch.Generator(device=resolve_device(cuda)).manual_seed(0), cfg)
+    return cfg, model, gpu, model.params_from_numpy(gpu.tree(), cfg, "cpu")
+
+
+def _served(model, cfg, params, rows):
+    eng = ServeEngine(model, cfg, params, ServeConfig(max_seq=64, batch_slots=2,
+                                                      max_new_tokens=8))
+    for row in rows:
+        eng.submit(row)
+    return eng.run()
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "moonshot-v1-16b-a3b"])
+def test_moe_smoke_on_the_card_equals_cpu(cuda, arch):
+    """Forward logits and aux within 1e-4, the same served greedy tokens,
+    and a train step's metrics (``moe_aux`` among them) within 1e-4 and
+    gradients within 1e-4 of each tensor's largest magnitude."""
+    cfg, model, gpu, cpu = _smoke_pair(cuda, arch)
+    batch = _dense_batch(cfg, 37, 3, 12, "cpu")
+    with torch.no_grad():
+        lg, ag = model.forward(gpu, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+        lc, ac = model.forward(cpu, batch, cfg)
+    assert_close(lg, lc)
+    assert_close(ag, ac)
+    rows = batch["tokens"].numpy()
+    assert _served(model, cfg, gpu, rows) == _served(model, cfg, cpu, rows)
+    grad_fn = TTS.make_grad_fn(model, cfg, TTS.TrainConfig())
+    mg, gg = grad_fn(gpu, {k: v.to(cuda) for k, v in batch.items()})
+    mc, gc = grad_fn(cpu, batch)
+    assert "moe_aux" in mc
+    for k in mc:
+        assert_close(mg[k], mc[k])
+    for a, b in zip(TMC.tree_leaves(gg), TMC.tree_leaves(gc)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def test_griffin_smoke_on_the_card_equals_cpu(cuda):
+    """recurrentgemma's smoke model with the same weights: the card
+    (``rg_lru_scan``, one launch a recurrent layer a call) and the CPU
+    (its plain version) give logits within 1e-4 and the same served
+    tokens, past the local window of 16."""
+    cfg, model, gpu, cpu = _smoke_pair(cuda, "recurrentgemma-2b")
+    toks = torch.from_numpy(np.random.default_rng(38).integers(0, cfg.vocab_size, (3, 20)))
+    before = krg.rg_lru_scan.launches
+    with torch.no_grad():
+        lg, _ = model.forward(gpu, {"tokens": toks.to(cuda)}, cfg)
+        lc, _ = model.forward(cpu, {"tokens": toks}, cfg)
+    assert krg.rg_lru_scan.launches == before + 2
+    assert_close(lg, lc)
+    rows = toks.numpy()
+    assert _served(model, cfg, gpu, rows) == _served(model, cfg, cpu, rows)

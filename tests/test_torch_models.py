@@ -234,9 +234,9 @@ def test_compute_weight_copies():
 
 def test_arch_config_copy_and_registry():
     """The port's ArchConfig is the reference's (every field, the derived
-    counts, the shape cells); its registry holds rwkv6-7b and the dense and
-    vlm archs (``tests/test_torch_transformer.py``), with the reference's
-    configs, and not the archs whose families wait."""
+    counts, the shape cells); its registry holds rwkv6-7b, the dense, vlm
+    and MoE archs and recurrentgemma (``tests/test_torch_transformer.py``),
+    with the reference's configs, and not whisper, whose family waits."""
     assert [f.name for f in dataclasses.fields(TArch)] == \
         [f.name for f in dataclasses.fields(jget_config("rwkv6-7b"))]
     assert "rwkv6-7b" in tconfigs.ARCH_NAMES
@@ -248,17 +248,24 @@ def test_arch_config_copy_and_registry():
     assert {k: dataclasses.asdict(v) for k, v in TSHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
     assert TLONG == JLONG
+    for arch in ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "recurrentgemma-2b"):
+        assert dataclasses.asdict(tconfigs.get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
     with pytest.raises(KeyError):
-        tconfigs.get_config("granite-moe-1b-a400m")
+        tconfigs.get_config("whisper-large-v3")
 
 
 def test_get_model_dispatch():
+    from repro_torch.models import recurrentgemma as TG
+    from repro_torch.models import transformer as TT
     model = tget_model(tconfigs.get_smoke("rwkv6-7b"))
     assert model.prefill is TR.prefill and model.init is TR.init_params
-    for family in ("moe", "hybrid", "audio"):
+    for family, module in (("moe", TT), ("hybrid", TG)):
         cfg = dataclasses.replace(tconfigs.get_smoke("rwkv6-7b"), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tget_model(cfg)
+        assert tget_model(cfg).prefill is module.prefill
+    cfg = dataclasses.replace(tconfigs.get_smoke("rwkv6-7b"), family="audio")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tget_model(cfg)
     with pytest.raises(ValueError):
         tget_model(dataclasses.replace(tconfigs.get_smoke("rwkv6-7b"), family="x"))
 

@@ -392,7 +392,8 @@ def test_init_params_has_the_reference_tree(arch):
 
 
 def test_config_copies_and_registry():
-    assert tconfigs.ARCH_NAMES == ARCHS[1:4] + ARCHS[:1] + ARCHS[4:] + ("rwkv6-7b",)
+    assert tconfigs.ARCH_NAMES == (("granite-moe-1b-a400m", "moonshot-v1-16b-a3b") + ARCHS[1:4]
+                                   + ARCHS[:1] + ARCHS[4:] + ("rwkv6-7b", "recurrentgemma-2b"))
     for arch in tconfigs.ARCH_NAMES:
         for get_t, get_j in ((tconfigs.get_config, jget_config),
                              (tconfigs.get_smoke, jget_smoke)):
@@ -401,7 +402,7 @@ def test_config_copies_and_registry():
             assert t.param_count() == j.param_count()
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.all_configs().items()} == \
         {k: dataclasses.asdict(jget_config(k)) for k in tconfigs.ARCH_NAMES}
-    for arch in ("granite-moe-1b-a400m", "whisper-large-v3", "recurrentgemma-2b"):
+    for arch in ("whisper-large-v3",):
         with pytest.raises(KeyError):
             tconfigs.get_config(arch)
     for arch in ARCHS:
@@ -410,12 +411,15 @@ def test_config_copies_and_registry():
 
 
 def test_mixture_of_experts_waits():
+    """It no longer waits: a dense config given experts builds MoE blocks
+    (``models/moe.py``) in place of the MLP, and the ``moe`` family
+    dispatches to this module."""
     cfg = dataclasses.replace(tconfigs.get_smoke("minicpm-2b"), num_experts=4,
                               experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TT.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tget_model(dataclasses.replace(cfg, family="moe"))
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg)
+    assert params.blocks[0].moe.w_gate.shape == (4, cfg.d_model, cfg.d_ff)
+    assert not hasattr(params.blocks[0], "mlp")
+    assert tget_model(dataclasses.replace(cfg, family="moe")).forward is TT.forward
 
 
 def test_entry_points_need_a_card_unless_asked(monkeypatch):
