@@ -95,8 +95,8 @@ Phases (any failure ends the run with a non-zero exit):
    generation's handle raising ``IndexFormatError``, and every backend's
    answers after compaction equal to the merged ones before it; the four
    kNN kernels must launch in this phase. The index directory (two
-   generations side by side at the compaction's peak, about 14 GB at the
-   full size) is removed after this phase, also on failure;
+   generations side by side at the compaction's peak, with its id-order
+   copy of the base, about 18 GB at the full size) is removed after this phase, also on failure;
 9. kernels vs plain versions at the main path's shapes, with CUDA-event
    times for kernel, plain version and library call (each launched from a
    host loop, as the engine launches them), and the bound;
@@ -118,10 +118,10 @@ Phases (any failure ends the run with a non-zero exit):
    T=512, H=64, K=V=64) with a nonzero state, the decode shape (T=1), bf16
    r/k/v as served and float32, the extreme decays and the
    overflow-then-reset case; host-loop and CUDA-graph times at both shapes;
-12. LM serving at full width: ``rwkv6-7b`` (all 32 layers, d_model 4096,
+12. LM serving at full width: ``rwkv6-7b`` (16 of its 32 layers, d_model 4096,
    bf16 compute, float32 parameters) with random weights from a seed, 8
    requests of 512-token prompts through ``ServeEngine`` in two waves of 4,
-   32 new tokens each; ``wkv6`` must launch 32 x (1 + 31) x 2 = 2,048
+   32 new tokens each; ``wkv6`` must launch 16 x (1 + 31) x 2 = 1,024
    times in that run; logits finite; the waves replayed step by step give
    the engine's tokens; served again in float32 with the same weights, each
    first token equals the request's solo run wherever its top-2 margin
@@ -168,18 +168,42 @@ Phases (any failure ends the run with a non-zero exit):
    the train step's metrics within 1e-4, each gradient within 1e-4 of its
    tensor's largest magnitude), recurrentgemma at full width and 3 layers
    (rec, rec, attn; a 64-token prefill and 4 decode steps within 1e-4,
-   tokens equal).
+   tokens equal);
+22. ``wkv6_bwd`` (the gradient's kernel) against its plain version
+   ``wkv6_bwd_ref``: float32 at (2, 67, 3, 64, 64) with w == 0 in one
+   chunk (every gradient within 1e-5 of its tensor's largest magnitude, dw
+   0 at the reset rows), ragged K/V, T=1, T=0; bf16 at the training shape
+   (4, 512, 64, 64, 64); two launches bit-equal; times and the bound;
+23. ``rg_lru_scan_bwd`` equal to ``rg_lru_scan_bwd_ref`` bit for bit at the
+   training shape (4, 512, 2560), T=1, a ragged shape and T=0, on the card
+   and against the CPU; times and the bound;
+24. ``rwkv6-7b`` trained at full width, cut to 12 of 32 layers (float32
+   AdamW state for 32 layers takes 120.6 GB), as phase 15 trains minicpm:
+   6 steps at B=4, S=512, remat, float32 moments (the loss must fall), one
+   int8-moment step; exactly 24 ``wkv6`` and 12 ``wkv6_bwd`` launches a
+   step (remat runs each layer's forward twice);
+25. ``recurrentgemma-2b`` trained at full width and depth the same way: 36
+   ``rg_lru_scan`` and 18 ``rg_lru_scan_bwd`` launches a step;
+26. the card against the CPU in float32: rwkv6 at full width and 2 layers
+   and recurrentgemma at full width and 3 layers (logits, the train step's
+   metrics, each gradient within 1e-4 of its tensor's largest magnitude);
+   recurrentgemma's smoke config: AdamW on the same gradients within 1e-6
+   (moments a list of layers) and a checkpoint (blocks as a list) resumed
+   on the card within 1e-6.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
 ``device_ms``, a CUDA graph's time; the ``dtw_band`` row from phase 7b at
 1 x 4,096, its other shapes in the summary; ``rg_lru_scan`` at the prefill
-and decode shapes, each row with the run's launches); then the card's ``nvidia-smi`` name
+and decode shapes, each row with the run's launches; ``wkv6_bwd`` and
+``rg_lru_scan_bwd`` at the training shapes, with the training phases'
+launches); then the card's ``nvidia-smi`` name
 and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -477,12 +501,14 @@ def reset_counters():
     from repro_torch.kernels import dtw as kdtw, ed as ked, lb_sax as klb, wkv6 as kwkv
     from repro_torch.kernels import rg_lru as krg
     krg.rg_lru_scan.launches = 0
+    krg.rg_lru_scan_bwd.launches = 0
     kdtw.dtw_band.launches = 0
     klb.lb_sax_matrix.launches = 0
     ked.ed_matrix.launches = 0
     ked.ed_min.launches = 0
     ked.decode_bf16_ed_matrix.launches = 0
     kwkv.wkv6.launches = 0
+    kwkv.wkv6_bwd.launches = 0
 
 
 def read_counters() -> dict:
@@ -601,9 +627,10 @@ def disk_root(disk_dir: str | None, num: int, n: int) -> str:
     free = shutil.disk_usage(root).free
     # a generation: lrd (4n bytes a row) + enc (2n + 4) + lsd (16), padding
     # and the small files, about 6.5 GB at 2**22 x 256; the journal: lrd +
-    # lsd of 1/16 of the rows; then generation 1 over both: about 14 GB
+    # lsd of 1/16 of the rows; then generation 1 over both, beside the
+    # compaction's id-order copy of the base (4n bytes a row): about 18 GB
     jrows = journal_rows(num) * 2
-    need = int((2 * num + jrows) * (6 * n + 20) * 1.05) + (128 << 20)
+    need = int(((2 * num + jrows) * (6 * n + 20) + num * 4 * n) * 1.05) + (128 << 20)
     log(f"[disk] index directory {root}: {free / 2**30:.1f} GiB free, the index, "
         f"its journal and its compacted generation need about {need / 2**30:.1f} GiB")
     if free < need:
@@ -1496,8 +1523,8 @@ def phase_store(hx, data, queries, summary):
                 f"ids equal")
         del eng
 
-    # compaction to generation 1, with _BaseRows' gathers timed (on the
-    # reader thread, beside the build)
+    # compaction to generation 1, with the reads of _BaseRows' id-order copy
+    # of the base timed (on the reader thread, beside the build)
     old = hx.saved
     stale = make_disk_backend("ooc-scan", hx, memory_budget_mb=DISK_BUDGET_MB)
     gather = {"s": 0.0, "rows": 0, "calls": 0}
@@ -1520,13 +1547,16 @@ def phase_store(hx, data, queries, summary):
     finally:
         store_mod._BaseRows.__getitem__ = getitem
     b = manifest["extra"]["build"]
+    stage_s = manifest["extra"]["compact"]["stage_seconds"]
     out.update(compact_s=compact_s, tree_s=b["tree_seconds"], write_s=b["write_seconds"],
-               gather_s=gather["s"], gather_rows=gather["rows"], gather_calls=gather["calls"])
+               stage_s=stage_s, gather_s=gather["s"], gather_rows=gather["rows"],
+               gather_calls=gather["calls"])
     log(f"[store] compacted {2 * seg} journal rows into generation {hx.generation} in "
-        f"{compact_s:.2f}s: tree_seconds {b['tree_seconds']}, write_seconds "
-        f"{b['write_seconds']} (chunks of {b['chunk_size']}, prefetch {b['prefetch']}); "
-        f"_BaseRows gathered {gather['rows']} base rows in {gather['calls']} slices in "
-        f"{gather['s']:.2f}s ({gather['rows'] / max(gather['s'], 1e-9):.0f} rows/s, "
+        f"{compact_s:.2f}s: the base staged in id order in {stage_s:.2f}s, tree_seconds "
+        f"{b['tree_seconds']}, write_seconds {b['write_seconds']} (chunks of "
+        f"{b['chunk_size']}, prefetch {b['prefetch']}); _BaseRows read {gather['rows']} "
+        f"base rows of the staged copy in {gather['calls']} slices in {gather['s']:.2f}s "
+        f"({gather['rows'] / max(gather['s'], 1e-9):.0f} rows/s, "
         f"{gather['rows'] / num:.1f} passes over the base)")
     files = sorted(os.listdir(hx.path))
     log(f"[store] files before: {gen0_files}; after: {files}")
@@ -1985,6 +2015,10 @@ def phase_cpu_agreement():
 # ---------------------------------------------------------------------------
 
 LM_REQUESTS, LM_PROMPT, LM_NEW, LM_SLOTS = 8, 512, 32, 4
+# phase 12 serves 16 of rwkv6-7b's 32 layers, at full width: with phases
+# 22-26 the whole run came within 60 s of its 1,200 s limit, and serving
+# depth is the first thing ROADMAP.md allows to be cut
+LM_SERVE_LAYERS = 16
 # A wave and a request alone run other matmul shapes, so their bf16
 # activations round differently, and 32 layers of random weights amplify
 # that: bf16 first-token logits of a wave and of its requests alone differ
@@ -2179,8 +2213,9 @@ def _first_tokens_vs_solo(model, cfg, params, toks, served):
 
 
 def phase_lm_serve(profile: bool = False):
-    """rwkv6-7b at full width through ``ServeEngine``. Returns the ``wkv6``
-    launches of the served run and a summary."""
+    """rwkv6-7b at full width, LM_SERVE_LAYERS of its 32 layers, through
+    ``ServeEngine``. Returns the ``wkv6`` launches of the served run and a
+    summary."""
     import dataclasses
     import numpy as np
     import torch
@@ -2189,7 +2224,7 @@ def phase_lm_serve(profile: bool = False):
     from repro_torch.models import get_model
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    cfg = get_config("rwkv6-7b")
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=LM_SERVE_LAYERS)
     model = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2337,7 +2372,8 @@ TRAIN_OPT = dict(learning_rate=3e-4, warmup_steps=1, total_steps=1000, schedule=
 def _all_launches() -> dict:
     from repro_torch.kernels import dtw as kdtw, rg_lru as krg, wkv6 as kwkv
     return {**read_counters(), "wkv6": kwkv.wkv6.launches, "dtw_band": kdtw.dtw_band.launches,
-            "rg_lru_scan": krg.rg_lru_scan.launches}
+            "rg_lru_scan": krg.rg_lru_scan.launches, "wkv6_bwd": kwkv.wkv6_bwd.launches,
+            "rg_lru_scan_bwd": krg.rg_lru_scan_bwd.launches}
 
 
 def _init_on_card(tag: str, cfg, model, serving: bool = False):
@@ -2539,53 +2575,21 @@ def _load_example(name: str):
     return mod
 
 
-def phase_dense_cpu_agreement():
-    """The card against the CPU: minicpm-2b at full width and 2 layers in
-    float32 (forward logits, the train step's loss and metrics within 1e-4,
-    each gradient within 1e-4 of its tensor's largest magnitude, the grad
-    norm within 1e-4 relative; AdamW on the card's gradients within 1e-6);
-    a smoke-size checkpoint written on the card, reloaded and trained on,
-    within 1e-6 of an uninterrupted run; the retrieval example's path on
-    the card, exact against brute force, ``lb_sax_matrix`` launched."""
-    import dataclasses
+def _checkpoint_resume(arch: str, tag: str):
+    """``arch``'s smoke config on the card: 2 steps, a checkpoint saved and
+    loaded, 2 more steps, against 4 straight steps, within 1e-6. Returns
+    (the largest parameter difference, the loaded state)."""
     import shutil
     import tempfile
     import torch
-    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs import get_smoke
     from repro_torch.launch.train import synth_batch
-    from repro_torch.models import common as C
     from repro_torch.models import get_model
-    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init, adamw_update,
-                                   load_checkpoint, make_train_step, save_checkpoint)
-    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train import (AdamWConfig, TrainConfig, load_checkpoint, make_train_step,
+                                   save_checkpoint)
     from repro_torch.train.train_step import init_train_state
 
-    cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2, dtype="float32")
-    model = get_model(cfg)
-    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
-    gpu = model.init(torch.Generator(device="cuda").manual_seed(1), cfg)
-    cpu = model.params_from_numpy(C.stack_tree(gpu.tree()), cfg, "cpu")
-    t0 = time.perf_counter()
-    errs, gg, gc = _card_vs_cpu_train(cfg, model, gpu, cpu, "dense-agree",
-                                      f"{DENSE_ARCH} full width, 2 layers")
-    ng, nc = float(global_norm(gg)), float(global_norm(gc))
-    check(abs(ng - nc) <= 1e-4 * nc, f"grad norm card {ng} vs CPU {nc}")
-    gg_cpu = C.tree_map(lambda g: g.cpu(), gg)
-    adamw_update(gpu, gg, adamw_init(gpu, tcfg.optimizer), tcfg.optimizer)
-    adamw_update(cpu, gg_cpu, adamw_init(cpu, tcfg.optimizer), tcfg.optimizer)
-    err_adam = 0.0
-    for a, b in zip(gpu.parameters(), cpu.parameters()):
-        err = float((a.detach().cpu() - b.detach()).abs().max())
-        err_adam = max(err_adam, err)
-        check(err <= 1e-6, f"AdamW on the same gradients: card vs CPU params differ by {err:.3e}")
-    log(f"[dense-agree] grad norm {ng:.6f} vs {nc:.6f}, AdamW params within {err_adam:.3e} "
-        f"({time.perf_counter() - t0:.2f}s)")
-    del gpu, cpu, gg, gc, gg_cpu
-    torch.cuda.empty_cache()
-
-    # a smoke-size checkpoint on the card: 2 steps, save, load, 2 more,
-    # against 4 straight steps
-    scfg = get_smoke(DENSE_ARCH)
+    scfg = get_smoke(arch)
     smodel = get_model(scfg)
     stcfg = TrainConfig(optimizer=AdamWConfig(learning_rate=1e-3, warmup_steps=2))
     sstep = make_train_step(smodel, scfg, stcfg)
@@ -2609,10 +2613,53 @@ def phase_dense_cpu_agreement():
                      range(meta["step"], 4))
     err_ckpt = max(float((a.detach() - b.detach()).abs().max())
                    for a, b in zip(straight.parameters(), resumed.parameters()))
-    check(err_ckpt <= 1e-6, f"training on from a checkpoint differs by {err_ckpt:.3e} from an "
-                            f"uninterrupted run")
-    log(f"[dense-agree] {scfg.name}: 2 steps, a checkpoint written on the card and reloaded, "
+    check(err_ckpt <= 1e-6, f"{scfg.name}: training on from a checkpoint differs by "
+                            f"{err_ckpt:.3e} from an uninterrupted run")
+    log(f"[{tag}] {scfg.name}: 2 steps, a checkpoint written on the card and reloaded, "
         f"2 more steps: within {err_ckpt:.3e} of 4 straight steps")
+    return err_ckpt, state
+
+
+def phase_dense_cpu_agreement():
+    """The card against the CPU: minicpm-2b at full width and 2 layers in
+    float32 (forward logits, the train step's loss and metrics within 1e-4,
+    each gradient within 1e-4 of its tensor's largest magnitude, the grad
+    norm within 1e-4 relative; AdamW on the card's gradients within 1e-6);
+    a smoke-size checkpoint written on the card, reloaded and trained on,
+    within 1e-6 of an uninterrupted run; the retrieval example's path on
+    the card, exact against brute force, ``lb_sax_matrix`` launched."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import common as C
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, TrainConfig, adamw_init, adamw_update
+    from repro_torch.train.optimizer import global_norm
+
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2, dtype="float32")
+    model = get_model(cfg)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+    gpu = model.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    cpu = model.params_from_numpy(C.stack_tree(gpu.tree(), gpu.stacked_blocks), cfg, "cpu")
+    t0 = time.perf_counter()
+    errs, gg, gc = _card_vs_cpu_train(cfg, model, gpu, cpu, "dense-agree",
+                                      f"{DENSE_ARCH} full width, 2 layers")
+    ng, nc = float(global_norm(gg)), float(global_norm(gc))
+    check(abs(ng - nc) <= 1e-4 * nc, f"grad norm card {ng} vs CPU {nc}")
+    gg_cpu = C.tree_map(lambda g: g.cpu(), gg)
+    adamw_update(gpu, gg, adamw_init(gpu, tcfg.optimizer), tcfg.optimizer)
+    adamw_update(cpu, gg_cpu, adamw_init(cpu, tcfg.optimizer), tcfg.optimizer)
+    err_adam = 0.0
+    for a, b in zip(gpu.parameters(), cpu.parameters()):
+        err = float((a.detach().cpu() - b.detach()).abs().max())
+        err_adam = max(err_adam, err)
+        check(err <= 1e-6, f"AdamW on the same gradients: card vs CPU params differ by {err:.3e}")
+    log(f"[dense-agree] grad norm {ng:.6f} vs {nc:.6f}, AdamW params within {err_adam:.3e} "
+        f"({time.perf_counter() - t0:.2f}s)")
+    del gpu, cpu, gg, gc, gg_cpu
+    torch.cuda.empty_cache()
+
+    err_ckpt, _ = _checkpoint_resume(DENSE_ARCH, "dense-agree")
 
     # the retrieval example's path on the card
     ex = _load_example("torch_retrieval_lm")
@@ -2852,12 +2899,13 @@ def phase_griffin_serve(profile: bool = False):
     return out
 
 
-def _card_vs_cpu_train(cfg, model, gpu, cpu, tag: str, what: str):
+def _card_vs_cpu_train(cfg, model, gpu, cpu, tag: str, what: str, cpu_cfg=None):
     """Forward logits and aux, the train step's metrics and gradients of
     ``gpu`` (on the card) against ``cpu`` (the same weights on the CPU), in
     float32, B=2 S=32: logits, aux and metrics within 1e-4, each gradient
-    within 1e-4 of its tensor's largest magnitude. Returns (errors, the
-    card's gradients, the CPU's)."""
+    within 1e-4 of its tensor's largest magnitude. ``cpu_cfg`` (default
+    ``cfg``) is the CPU side's config. Returns (errors, the card's
+    gradients, the CPU's)."""
     import torch
     from repro_torch.launch.train import synth_batch
     from repro_torch.models import common as C
@@ -2870,23 +2918,32 @@ def _card_vs_cpu_train(cfg, model, gpu, cpu, tag: str, what: str):
         lc, ac = model.forward(cpu, batch, cfg)
     err = assert_close(lg, lc, "float32", f"{what}: card vs CPU logits")
     assert_close(ag, ac, "float32", f"{what}: card vs CPU aux")
-    grad_fn = make_grad_fn(model, cfg, TrainConfig())
-    mg, gg = grad_fn(gpu, {k: v.cuda() for k, v in batch.items()})
-    mc, gc = grad_fn(cpu, batch)
+    mg, gg = make_grad_fn(model, cfg, TrainConfig())(gpu,
+                                                     {k: v.cuda() for k, v in batch.items()})
+    mc, gc = make_grad_fn(model, cpu_cfg or cfg, TrainConfig())(cpu, batch)
     for k in mc:
         assert_close(mg[k], mc[k], "float32", f"{what}: train-step metric {k}, card vs CPU")
-    worst = 0.0
-    for (path, gs), (_, cs) in zip(C.leaf_groups(gg), C.leaf_groups(gc)):
-        for a, b in zip(gs, cs):
-            rel = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-            worst = max(worst, rel)
-            check(rel <= 1e-4, f"{what}: gradient {'/'.join(path)}, card vs CPU differ by "
-                               f"{rel:.3e} of its largest magnitude")
+    worst, worst_at = 0.0, ""
+    check(gpu.stacked_blocks == cpu.stacked_blocks,
+          f"{what}: the card's and the CPU's trees differ in their blocks' layout")
+    groups = list(zip(C.leaf_groups(gg, gpu.stacked_blocks),
+                      C.leaf_groups(gc, cpu.stacked_blocks), strict=True))
+    for (path, gs), (cpath, cs) in groups:
+        check(path == cpath and len(gs) == len(cs),
+              f"{what}: gradient {path} of the card paired with {cpath} of the CPU")
+        for i, (a, b) in enumerate(zip(gs, cs)):
+            b = b.to(a.device)          # exact operations: the same numbers, on the card
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            at = "/".join(map(str, path)) + (f"[{i}]" if len(gs) > 1 else "")
+            if rel > worst:
+                worst, worst_at = rel, at
+            check(rel <= 1e-4, f"{what}: gradient {at}, card vs CPU differ by {rel:.3e} of "
+                               f"its largest magnitude")
     log(f"[{tag}] {what}, float32, B=2 S=32: logits max abs err {err:.3e}, aux "
         f"{float(ag):.6f} vs {float(ac):.6f}, "
         + ", ".join(f"{k} {float(mg[k]):.6f} vs {float(mc[k]):.6f}"
                     for k in ("loss", "moe_aux") if k in mc)
-        + f", gradients within {worst:.3e} of each tensor's largest magnitude")
+        + f", gradients within {worst:.3e} of each tensor's largest magnitude ({worst_at})")
     return {"logits_err": err, "grad_rel_err": worst}, gg, gc
 
 
@@ -2946,6 +3003,499 @@ def phase_moe_griffin_cpu_agreement():
     out[GRIFFIN_ARCH] = {"logits_err": err}
     del gpu
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training the two recurrent families: the backward kernels
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-7b"
+RWKV_TRAIN_LAYERS = 12          # of 32: 3,161,161,728 parameters, 50.6 GB with AdamW
+WKV_TRAIN_SHAPE = (TRAIN_B, TRAIN_S, 64, 64, 64)
+WKV_CHECK_SHAPE = (2, 67, 3, 64, 64)
+RG_TRAIN_SHAPE = (TRAIN_B, TRAIN_S, 2560)
+GRAD_REL_TOL = 1e-5             # a kernel's gradient against its plain version, of the max
+BF16_GRAD_REL_TOL = 8e-3        # bf16 gradients: a bf16 step (2^-8) of the max, with room
+
+
+def _wkv_bwd_cost(b, t, h, dk, dv, esize):
+    """(bytes, operations) of the gradient: r, k, v and dout (``esize``
+    bytes) and w read once, dr, dk, dv (``esize``) and dw written once, s0
+    and dsT read and ds0 written, u read and du written; per (b, t, h) and
+    state element 14 operations (forming S_{t-1}: a multiply and an FMA; an
+    FMA each for dr, dk, dw and dv; a multiply and an FMA for the next G),
+    and per row and column the bonus, v . do, sum u r k and du terms."""
+    steps = b * t * h
+    nbytes = (esize * steps * (4 * dk + 3 * dv) + 8 * steps * dk + 3 * 4 * b * h * dk * dv
+              + 2 * 4 * h * dk)
+    return nbytes, steps * (14 * dk * dv + 12 * dk + 2 * dv)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over the largest |want| (float32, on the CPU)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+WKV_GRAD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def _hold_wkv6_bwd(args, got, tol: float, what: str) -> float:
+    """Each of ``got`` (the kernel's gradients) within ``tol`` of its
+    tensor's largest magnitude from ``wkv6_bwd_ref`` on ``args``; dw exactly
+    0 where w == 0 (a reset row of a finite state). Returns the worst
+    relative error."""
+    import torch
+    from repro_torch.kernels import ref
+    want = ref.wkv6_bwd_ref(*args)
+    worst = 0.0
+    for name, a, b in zip(WKV_GRAD_NAMES, got, want):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"wkv6_bwd {what}: {name} is {a.dtype} {tuple(a.shape)}, not {b.dtype} "
+              f"{tuple(b.shape)}")
+        check(bool(torch.isfinite(a).all()), f"wkv6_bwd {what}: {name} not finite")
+        if a.numel():
+            rel = _rel_err(a, b)
+            check(rel <= tol, f"wkv6_bwd {what}: {name} differs from wkv6_bwd_ref by {rel:.3e} "
+                              f"of its largest magnitude (limit {tol})")
+            worst = max(worst, rel)
+    zero = args[3] == 0.0
+    check(bool((got[3][zero] == 0.0).all()), f"wkv6_bwd {what}: dw is not 0 where w == 0")
+    return worst
+
+
+def phase_wkv6_bwd_kernel():
+    """``wkv6_bwd`` against its plain version ``wkv6_bwd_ref`` on the card:
+    float32 at (2, 67, 3, 64, 64) with w == 0 at some rows of steps 40-42,
+    every gradient within 1e-5 of its tensor's largest magnitude and dw 0
+    at those rows; ragged K and V, T=1 and T=0; bf16 r, k, v at the
+    training shape (4, 512, 64, 64, 64) within a bf16 step; two launches
+    bit-equal at both shapes. Times at the training shape by the host loop
+    and by a CUDA graph, the plain version's once. Returns the kernel's row
+    (its launches are filled in by phase 24)."""
+    import torch
+    from repro_torch.kernels import ref, wkv6 as kwkv
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def grads_in(shape, dtype=None):
+        b, t, h, dk, dv = shape
+        a = list(_wkv_inputs(g, b, t, h, dk, dv, dtype))
+        dout = torch.randn((b, t, h, dv), generator=g, device="cuda").to(a[0].dtype)
+        dst = torch.randn((b, h, dk, dv), generator=g, device="cuda")
+        return a + [dout, dst]
+
+    args = grads_in(WKV_CHECK_SHAPE)
+    w = args[3]
+    w[:, 40:43] = torch.where(torch.rand(w[:, 40:43].shape, generator=g, device="cuda") < 0.3,
+                              0.0, w[:, 40:43])
+    check(bool((w == 0).any()), "wkv6_bwd: no w == 0 in the check")
+    got = kwkv.wkv6_bwd(*args)
+    err32 = _hold_wkv6_bwd(args, got, GRAD_REL_TOL, f"{WKV_CHECK_SHAPE} float32, w == 0 at "
+                                                    f"steps 40-42")
+    again = kwkv.wkv6_bwd(*args)
+    for name, a, b in zip(WKV_GRAD_NAMES, got, again):
+        check(torch.equal(words32(a), words32(b)), f"wkv6_bwd: two launches differ in {name}")
+    for shape in ((1, 5, 2, 33, 17), (2, 40, 1, 64, 7), (2, 1, 4, 64, 64), (1, 0, 2, 8, 8)):
+        a = grads_in(shape)
+        _hold_wkv6_bwd(a, kwkv.wkv6_bwd(*a), GRAD_REL_TOL, f"{shape} float32")
+    train = grads_in(WKV_TRAIN_SHAPE, torch.bfloat16)
+    t0 = time.perf_counter()
+    want = ref.wkv6_bwd_ref(*train)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    got = kwkv.wkv6_bwd(*train)
+    err16 = 0.0
+    for name, a, b in zip(WKV_GRAD_NAMES, got, want):
+        rel = _rel_err(a, b)
+        err16 = max(err16, rel)
+        check(a.dtype == b.dtype and rel <= BF16_GRAD_REL_TOL,
+              f"wkv6_bwd {WKV_TRAIN_SHAPE} bf16: {name} ({a.dtype}) differs from wkv6_bwd_ref "
+              f"by {rel:.3e} of its largest magnitude (limit {BF16_GRAD_REL_TOL})")
+    max_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    again = kwkv.wkv6_bwd(*train)
+    for name, a, b in zip(WKV_GRAD_NAMES, got, again):
+        check(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else words32(a),
+                          b.view(torch.int16) if b.dtype == torch.bfloat16 else words32(b)),
+              f"wkv6_bwd {WKV_TRAIN_SHAPE} bf16: two launches differ in {name}")
+    del want, again
+    torch.cuda.synchronize()
+    log(f"[wkv6_bwd] within {err32:.3e} of wkv6_bwd_ref's largest magnitudes at "
+        f"{WKV_CHECK_SHAPE} float32 (w == 0 at steps 40-42, dw 0 there; limit {GRAD_REL_TOL}), "
+        f"at ragged K/V, T=1 and T=0; within {err16:.3e} at {WKV_TRAIN_SHAPE} bf16 (limit "
+        f"{BF16_GRAD_REL_TOL}); two launches bit-equal at both shapes")
+
+    def run():
+        return kwkv.wkv6_bwd(*train)
+
+    row = dict(name="wkv6_bwd", route="cuda", source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+               replaces="src/repro/kernels/ref.py:55 (jax.vjp of wkv6_ref, which the reference "
+                        "trains through; no TPU kernel: src/repro/kernels/wkv6.py has no "
+                        "backward)",
+               shape=list(WKV_TRAIN_SHAPE), launches=None, max_abs_err=max_abs,
+               ms=time_ms(run, reps=10, warmup=2), device_ms=device_ms(run, reps=10),
+               plain_ms=plain_ms, library_ms=None)
+    row["bytes"], row["ops"] = _wkv_bwd_cost(*WKV_TRAIN_SHAPE, 2)
+    _bound(row)
+    log(f"[timing] wkv6_bwd {WKV_TRAIN_SHAPE} bf16: host loop {row['ms']:.4f} ms, device "
+        f"{row['device_ms']:.4f}, plain {plain_ms:.1f} (one run), library none; bound "
+        f"{row['bound_ms']:.4f} by {row['bound_by']} ({row['bytes'] / 1e6:.1f} MB, "
+        f"{row['ops'] / 1e9:.3f} G operations; {row['bound_ms'] / row['device_ms']:.1%})")
+    return row
+
+
+def phase_rg_lru_bwd_kernel():
+    """``rg_lru_scan_bwd`` equal to its plain version ``rg_lru_scan_bwd_ref``
+    in every bit on the card (and to the plain version on the CPU) at the
+    training shape (4, 512, 2560) with a nonzero dhT, the decode shape
+    (T=1), a ragged shape and T=0; host-loop and CUDA-graph times at the
+    training shape beside the plain version's and the bound. Returns the
+    kernel's row (its launches are filled in by phase 25)."""
+    import torch
+    from repro_torch.kernels import ref, rg_lru as krg
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    args = {}
+    for kind, shape in {"train": RG_TRAIN_SHAPE, "decode": RG_SHAPES["decode"],
+                        "ragged": (3, 37, 77), "empty": (2, 0, 5)}.items():
+        b, t, r = shape
+        a = torch.rand((b, t, r), generator=g, device="cuda")
+        gated = torch.randn((b, t, r), generator=g, device="cuda")
+        h0 = torch.randn((b, r), generator=g, device="cuda")
+        y, _ = krg.rg_lru_scan(a, gated, h0)
+        dy = torch.randn((b, t, r), generator=g, device="cuda")
+        dht = torch.randn((b, r), generator=g, device="cuda")
+        args[kind] = x = (a, y, h0, dy, dht)
+        got = krg.rg_lru_scan_bwd(*x)
+        for name, q, want, cpu in zip(("da", "dg", "dh0"), got, ref.rg_lru_scan_bwd_ref(*x),
+                                      ref.rg_lru_scan_bwd_ref(*(v.cpu() for v in x))):
+            bad = int((words32(q) != words32(want)).sum())
+            check(bad == 0, f"rg_lru_scan_bwd {kind} {shape}: {bad} {name} words differ from "
+                            f"rg_lru_scan_bwd_ref on the card")
+            bad = int((words32(q).cpu() != words32(cpu)).sum())
+            check(bad == 0, f"rg_lru_scan_bwd {kind} {shape}: {bad} {name} words differ from "
+                            f"rg_lru_scan_bwd_ref on the CPU")
+    torch.cuda.synchronize()
+    log(f"[rg_lru_bwd] rg_lru_scan_bwd equals rg_lru_scan_bwd_ref bit for bit (on the card and "
+        f"on the CPU) at {RG_TRAIN_SHAPE} with a nonzero dhT, {RG_SHAPES['decode']}, (3, 37, 77) "
+        f"and T=0")
+    x = args["train"]
+    nbytes, ops = 20 * math.prod(RG_TRAIN_SHAPE) + 12 * TRAIN_B * RG_TRAIN_SHAPE[2], \
+        3 * math.prod(RG_TRAIN_SHAPE)
+    row = dict(name="rg_lru_scan_bwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/rg_lru.cu",
+               replaces="src/repro/models/recurrentgemma.py:114 (jax.grad of _rg_lru's "
+                        "lax.scan; reference code outside Pallas, no TPU kernel)",
+               shape=list(RG_TRAIN_SHAPE), launches=None, max_abs_err=0.0, library_ms=None,
+               bytes=nbytes, ops=ops,
+               ms=time_ms(lambda: krg.rg_lru_scan_bwd(*x), reps=50, warmup=2),
+               device_ms=device_ms(lambda: krg.rg_lru_scan_bwd(*x), reps=50),
+               plain_ms=time_ms(lambda: ref.rg_lru_scan_bwd_ref(*x), reps=3, warmup=1))
+    _bound(row)
+    log(f"[timing] rg_lru_scan_bwd {RG_TRAIN_SHAPE}: host loop {row['ms']:.4f} ms, device "
+        f"{row['device_ms']:.4f}, plain {row['plain_ms']:.4f}, library none; bound "
+        f"{row['bound_ms']:.5f} by {row['bound_by']} ({row['bound_ms'] / row['device_ms']:.1%})")
+    return row
+
+
+def _recurrent_train(tag: str, cfg, per_step: dict, n_params: int) -> dict:
+    """``cfg`` trained as phase 15 trains minicpm: TRAIN_STEPS steps of
+    ``make_train_step`` (AdamW at TRAIN_OPT, float32 moments, remat) at
+    B=4, S=512 on one repeated ``synth_batch``; loss and grad norm finite,
+    the last loss below the first; each kernel's launches a step equal to
+    ``per_step`` (and no kernel of the kNN paths launched); then one step
+    with int8 moments from a fresh state. Returns the summary."""
+    import torch
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, TrainConfig, adamw_init, make_train_step
+    from repro_torch.train.train_step import init_train_state
+
+    check(cfg.remat, f"{cfg.name} trains with remat")
+    model = get_model(cfg)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = init_train_state(model, cfg, tcfg,
+                                   torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    count = sum(p.numel() for p in params.parameters())
+    check(count == n_params, f"{cfg.name}: {count} parameters, not {n_params}")
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}; {count} float32 parameters and float32 moments "
+        f"({16 * count / 1e9:.1f} GB with gradients) made on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    step = make_train_step(model, cfg, tcfg)
+    batch = synth_batch(0, 0, cfg, TRAIN_B, TRAIN_S, "cuda")
+    losses, gnorms, step_s = [], [], []
+    reset_counters()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = _all_launches()
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"{cfg.name} train losses {losses} or grad norms {gnorms} not finite")
+    check(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall over {TRAIN_STEPS} "
+                                  f"steps: {losses}")
+    want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in launches}
+    check(launches == want, f"{cfg.name} training launches {launches}, not {want} "
+                            f"({per_step} a step)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_B * TRAIN_S
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    flops = 6 * count * tokens
+    log(f"[{tag}] {cfg.name}, B={TRAIN_B} S={TRAIN_S}, remat, {cfg.dtype} compute, float32 "
+        f"params and moments, AdamW {TRAIN_OPT}: losses {[round(v, 4) for v in losses]}, grad "
+        f"norms {[round(v, 4) for v in gnorms]}; step s {[round(v, 3) for v in step_s]} (median "
+        f"after the first {med:.3f}s, {tokens / med:.1f} tokens/s, "
+        f"{flops / med / 1e12:.1f} TFLOP/s by 6*N*D, N={count}); peak device memory "
+        f"{peak:.2f} GiB; launches a step {per_step}")
+    del opt
+    torch.cuda.empty_cache()
+    tcfg8 = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT, moment_dtype="int8"))
+    opt8 = adamw_init(params, tcfg8.optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt8, m8 = make_train_step(model, cfg, tcfg8)(params, opt8, batch)
+    torch.cuda.synchronize()
+    s8 = time.perf_counter() - t0
+    peak8 = torch.cuda.max_memory_allocated() / 2**30
+    check(math.isfinite(float(m8["loss"])) and math.isfinite(float(m8["grad_norm"])),
+          f"{cfg.name}: the int8-moment step's loss or grad norm is not finite")
+    log(f"[{tag}] one step with int8 moments (fresh state) after those: loss "
+        f"{float(m8['loss']):.4f}, grad norm {float(m8['grad_norm']):.4f}, {s8:.3f}s "
+        f"({tokens / s8:.1f} tokens/s); peak device memory {peak8:.2f} GiB")
+    del params, opt8
+    torch.cuda.empty_cache()
+    return {"params": count, "losses": losses, "grad_norms": gnorms, "step_s": step_s,
+            "step_s_median": med, "tokens_per_s": tokens / med,
+            "tflops_6nd": flops / med / 1e12, "peak_gib": peak, "launches": launches,
+            "int8_step_s": s8, "int8_loss": float(m8["loss"]), "int8_peak_gib": peak8}
+
+
+def phase_rwkv_train():
+    """rwkv6-7b at its published width (d 4096, 64 heads of 64), cut to 12
+    of 32 layers (32 layers with float32 AdamW state take 120.6 GB), trained
+    by :func:`_recurrent_train`: 24 ``wkv6`` launches a step (remat runs
+    each layer's forward twice) and 12 ``wkv6_bwd``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=RWKV_TRAIN_LAYERS)
+    n = RWKV_TRAIN_LAYERS
+    return _recurrent_train("rwkv-train", cfg, {"wkv6": 2 * n, "wkv6_bwd": n},
+                            3_161_161_728)
+
+
+def phase_griffin_train():
+    """recurrentgemma-2b at its published width and depth (26 layers, 18
+    recurrent) trained by :func:`_recurrent_train`: 36 ``rg_lru_scan``
+    launches a step and 18 ``rg_lru_scan_bwd``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.recurrentgemma import _pattern
+
+    cfg = get_config(GRIFFIN_ARCH)
+    n_rec = sum(kind == "rec" for kind in _pattern(cfg))
+    return _recurrent_train("griffin-train", cfg,
+                            {"rg_lru_scan": 2 * n_rec, "rg_lru_scan_bwd": n_rec},
+                            GRIFFIN_PARAMS)
+
+
+@contextlib.contextmanager
+def _wkv6_probe(layers: int):
+    """Records, for the first ``layers`` calls of ``ops.wkv6`` on each kind
+    of device that need grad (the layers' first forward pass; a remat
+    recompute comes later), its inputs, the gradient its output receives
+    (``dout``), the gradients it hands to r, k, v and w (``dr`` ...) and
+    the gradient of the group norm's output after it (``dgn``), as detached
+    copies: ``{"cuda": [layer 0, layer 1, ...], "cpu": [...]}``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import rwkv6
+
+    rec = {"cuda": [], "cpu": []}
+    orig, orig_gn = ops.wkv6, rwkv6._group_norm
+
+    def save(e, name):
+        def hook(g):
+            e[name] = g.detach().clone()
+        return hook
+
+    def wkv6(r, k, v, w, u, state, **kw):
+        out, st = orig(r, k, v, w, u, state, **kw)
+        calls = rec[r.device.type]
+        if torch.is_grad_enabled() and r.requires_grad and len(calls) < layers:
+            e = {"in": [x.detach().clone() for x in (r, k, v, w, u, state)]}
+            for name, x in zip(("dr", "dk", "dv", "dw"), (r, k, v, w)):
+                x.register_hook(save(e, name))
+            out.register_hook(save(e, "dout"))
+            calls.append(e)
+        return out, st
+
+    def group_norm(x, *args):
+        y = orig_gn(x, *args)
+        calls = rec[x.device.type]
+        if torch.is_grad_enabled() and y.requires_grad and calls and "gn" not in calls[-1]:
+            calls[-1]["gn"] = True
+            y.register_hook(save(calls[-1], "dgn"))
+        return y
+
+    ops.wkv6, rwkv6._group_norm = wkv6, group_norm
+    try:
+        yield rec
+    finally:
+        ops.wkv6, rwkv6._group_norm = orig, orig_gn
+
+
+def _wkv6_gap_report(rec: dict, gg: dict, gc: dict, what: str) -> list:
+    """Where the card's RWKV-6 gradients part from the CPU's, layer by
+    layer (each number a max abs difference over the second tensor's
+    largest magnitude): the wkv6 inputs, the gradient of the group norm's
+    output and the incoming ``dout`` (the group norm's input), card vs CPU
+    (the forward's and the head's rounding); ``WKV6Fn``'s gradients on
+    the card against ``wkv6_bwd_ref`` on the same card tensors (the kernel
+    alone); ``wkv6_bwd_ref`` on the card's tensors against the CPU's
+    gradients (the plain function's amplification of the inputs' gaps);
+    and the layer's ``tm`` projections' gradients, card vs CPU."""
+    import torch
+    from repro_torch.kernels.ref import wkv6_bwd_ref
+
+    def rel(a, b):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    out = []
+    check(len(rec["cuda"]) == len(rec["cpu"]) == len(gg["blocks"]),
+          f"{what}: the wkv6 probe saw {len(rec['cuda'])} card and {len(rec['cpu'])} CPU "
+          f"layers")
+    for layer, (ec, eh) in enumerate(zip(rec["cuda"], rec["cpu"])):
+        ins = [x.cpu() for x in ec["in"]]
+        d_ref = wkv6_bwd_ref(*ins, ec["dout"].cpu(), torch.zeros_like(ins[5]))
+        names = ("dr", "dk", "dv", "dw")
+        row = {"layer": layer,
+               "inputs": {n: rel(a, b) for n, a, b in zip("rkvw", ec["in"], eh["in"])},
+               "dgn": rel(ec["dgn"], eh["dgn"]),
+               "dout": rel(ec["dout"], eh["dout"]),
+               "kernel_vs_ref": {n: rel(ec[n], d) for n, d in zip(names, d_ref)},
+               "ref_card_inputs_vs_cpu": {n: rel(d, eh[n]) for n, d in zip(names, d_ref)},
+               "card_vs_cpu": {n: rel(ec[n], eh[n]) for n in names},
+               "weights": {n: rel(gg["blocks"][layer]["tm"][n], gc["blocks"][layer]["tm"][n])
+                           for n in ("w_r", "w_k", "w_v", "w_lora_b")}}
+        check(max(row["kernel_vs_ref"].values()) <= 1e-5,
+              f"{what}, layer {layer}: WKV6Fn's card gradients differ from wkv6_bwd_ref on "
+              f"the same tensors by {row['kernel_vs_ref']}")
+        log(f"[recurrent-agree] {what}, layer {layer}, relative gaps: wkv6 inputs card vs CPU "
+            + ", ".join(f"{n} {x:.3e}" for n, x in row["inputs"].items())
+            + f"; the group norm's output gradient {row['dgn']:.3e}, its input's (dout) "
+            + f"{row['dout']:.3e}; WKV6Fn on the card vs wkv6_bwd_ref on its tensors "
+            + ", ".join(f"{n} {x:.3e}" for n, x in row["kernel_vs_ref"].items())
+            + "; wkv6_bwd_ref on the card's tensors vs the CPU's gradients "
+            + ", ".join(f"{n} {x:.3e}" for n, x in row["ref_card_inputs_vs_cpu"].items())
+            + "; card vs CPU "
+            + ", ".join(f"{n} {x:.3e}" for n, x in row["card_vs_cpu"].items())
+            + "; weight gradients card vs CPU "
+            + ", ".join(f"tm/{n} {x:.3e}" for n, x in row["weights"].items()))
+        out.append(row)
+    return out
+
+
+def phase_recurrent_cpu_agreement():
+    """The card against the CPU in float32: rwkv6-7b at full width and 2
+    layers and recurrentgemma-2b at full width and 3 layers (rec, rec,
+    attn): logits, the train step's loss and metrics, each gradient within
+    1e-4 of its tensor's largest magnitude (``_card_vs_cpu_train``; the
+    card's gradients through the backward kernels with remat, as phases 24
+    and 25 train, the CPU's through the plain backward versions without),
+    the grad norm within 1e-4 relative, the kernels' launches counted; for
+    rwkv6, where the card's gradients part from the CPU's, layer by layer
+    (``_wkv6_gap_report``); AdamW on
+    the card's gradients of recurrentgemma's smoke config (its list layout
+    of moments) within 1e-6; a recurrentgemma smoke checkpoint
+    written on the card (the list layout), reloaded and trained on, within
+    1e-6 of an uninterrupted run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import common as C
+    from repro_torch.models import get_model
+    from repro_torch.models.recurrentgemma import _pattern
+    from repro_torch.train import AdamWConfig, TrainConfig, adamw_init, adamw_update
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import make_grad_fn
+
+    out = {}
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+    for arch, layers in ((RWKV_ARCH, 2), (GRIFFIN_ARCH, 3)):
+        # the card trains with remat, as phases 24-25 do; remat changes no
+        # value (tests/test_torch_recurrent_train.py), so the CPU runs each
+        # layer's forward once
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32",
+                                  remat=True)
+        model = get_model(cfg)
+        t0 = time.perf_counter()
+        gpu = model.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+        cpu = model.params_from_numpy(gpu.tree(), cfg, "cpu")
+        t_copy = time.perf_counter() - t0
+        reset_counters()
+        tag = f"{arch} full width, {layers} layers"
+        with _wkv6_probe(layers) as rec:
+            errs, gg, gc = _card_vs_cpu_train(cfg, model, gpu, cpu, "recurrent-agree", tag,
+                                              dataclasses.replace(cfg, remat=False))
+        t_grads = time.perf_counter() - t0 - t_copy
+        launches = _all_launches()
+        if arch == RWKV_ARCH:
+            fwd, bwd, n = "wkv6", "wkv6_bwd", layers
+        else:
+            fwd, bwd, n = "rg_lru_scan", "rg_lru_scan_bwd", sum(
+                kind == "rec" for kind in _pattern(cfg))
+        # the no-grad forward once, the gradient's forward twice (remat)
+        check(launches[fwd] == 3 * n and launches[bwd] == n,
+              f"{tag}: {launches[fwd]} {fwd} and {launches[bwd]} {bwd} launches, not "
+              f"{3 * n} and {n}: {launches}")
+        ng, nc = float(global_norm(gg)), float(global_norm(gc))
+        check(abs(ng - nc) <= 1e-4 * nc, f"{tag}: grad norm card {ng} vs CPU {nc}")
+        out[arch] = {**errs, "grad_norms": [ng, nc]}
+        if arch == RWKV_ARCH:
+            out[arch]["gaps"] = _wkv6_gap_report(rec, gg, gc, tag)
+        del rec
+        log(f"[recurrent-agree] {tag}: grad norm {ng:.6f} vs {nc:.6f}; launches {launches} "
+            f"(s: copy {t_copy:.2f}, forward and gradients {t_grads:.2f})")
+        del gpu, cpu, gg, gc
+        torch.cuda.empty_cache()
+
+    # AdamW in the list layout's moments (phase 16 holds the stacked layout's
+    # at full width; here the smoke config, since the CPU's eager update of
+    # 1.4 B float32 parameters alone takes ~40 s)
+    scfg = get_smoke(GRIFFIN_ARCH)
+    smodel = get_model(scfg)
+    gpu = smodel.init(torch.Generator(device="cuda").manual_seed(1), scfg)
+    cpu = smodel.params_from_numpy(gpu.tree(), scfg, "cpu")
+    _, gg = make_grad_fn(smodel, scfg, tcfg)(gpu, synth_batch(3, 0, scfg, 2, 24, "cuda"))
+    adamw_update(gpu, gg, adamw_init(gpu, tcfg.optimizer), tcfg.optimizer)
+    adamw_update(cpu, C.tree_map(lambda g: g.cpu(), gg), adamw_init(cpu, tcfg.optimizer),
+                 tcfg.optimizer)
+    err_adam = max(float((a.detach().cpu() - b.detach()).abs().max())
+                   for a, b in zip(gpu.parameters(), cpu.parameters()))
+    check(err_adam <= 1e-6, f"{scfg.name}: AdamW on the same gradients, card vs CPU params "
+                            f"differ by {err_adam:.3e}")
+    log(f"[recurrent-agree] {scfg.name}: AdamW (moments a list of layers) on the card's "
+        f"gradients, card vs CPU params within {err_adam:.3e}")
+    out["adamw_err"] = err_adam
+    del gpu, cpu, gg
+
+    out["ckpt_err"], state = _checkpoint_resume(GRIFFIN_ARCH, "recurrent-agree")
+    check(isinstance(state["params"]["blocks"], list)
+          and isinstance(state["opt"]["m"]["blocks"], list),
+          f"{GRIFFIN_ARCH}: the checkpoint's blocks are not the reference's list layout")
     return out
 
 
@@ -3117,6 +3667,18 @@ def main(argv=None) -> int:
     summary["moe_griffin_agree"] = timed("moe_griffin_agree", phase_moe_griffin_cpu_agreement)
     log(f"[moe] phases 17-21 took {phase_s['moe_serve']} / {phase_s['moe_train']} / "
         f"{phase_s['rg_lru']} / {phase_s['griffin_serve']} / {phase_s['moe_griffin_agree']}s")
+    torch.cuda.empty_cache()
+    bwd_rows = [timed("wkv6_bwd", phase_wkv6_bwd_kernel),
+                timed("rg_lru_bwd", phase_rg_lru_bwd_kernel)]
+    summary["rwkv_train"] = timed("rwkv_train", phase_rwkv_train)
+    summary["griffin_train"] = timed("griffin_train", phase_griffin_train)
+    for r, phase in zip(bwd_rows, ("rwkv_train", "griffin_train")):
+        r["launches"] = summary[phase]["launches"][r["name"]]
+    rows += bwd_rows
+    summary["recurrent_agree"] = timed("recurrent_agree", phase_recurrent_cpu_agreement)
+    log(f"[recurrent] phases 22-26 took {phase_s['wkv6_bwd']} / {phase_s['rg_lru_bwd']} / "
+        f"{phase_s['rwkv_train']} / {phase_s['griffin_train']} / "
+        f"{phase_s['recurrent_agree']}s")
     log(f"[main] summary {json.dumps(summary)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

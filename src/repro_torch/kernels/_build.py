@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("lb_sax", "ed", "wkv6", "dtw", "rg_lru")
+SOURCES = ("lb_sax", "ed", "wkv6", "wkv6_bwd", "dtw", "rg_lru")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -123,12 +123,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.wkv6_f32, lib.wkv6_bf16):
             fn.argtypes = [_P] * 8 + [_I] * 5 + [_P]
             fn.restype = _I
+    elif name == "wkv6_bwd":
+        for fn in (lib.wkv6_bwd_f32, lib.wkv6_bwd_bf16):
+            fn.argtypes = [_P] * 17 + [_I] * 5 + [_P]
+            fn.restype = _I
     elif name == "dtw":
         lib.dtw_band_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
         lib.dtw_band_f32.restype = _I
     elif name == "rg_lru":
         lib.rg_lru_scan_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
         lib.rg_lru_scan_f32.restype = _I
+        lib.rg_lru_scan_bwd_f32.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+        lib.rg_lru_scan_bwd_f32.restype = _I
 
 
 def check(err: int, what: str) -> None:

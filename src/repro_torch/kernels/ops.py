@@ -7,6 +7,11 @@ CUDA kernels mask their own ragged edges (and ``wkv6`` and ``rg_lru_scan``
 loop over any T),
 so unlike the reference's wrappers nothing is padded to block multiples
 here.
+
+``wkv6`` and ``rg_lru_scan`` are differentiable: when grad is on and an
+input needs it they go through :class:`WKV6Fn` and :class:`RGLRUScanFn`,
+whose backward is a hand-written kernel too on CUDA tensors (the plain
+backward on CPU tensors, or with ``mode="ref"``).
 """
 from __future__ import annotations
 
@@ -83,16 +88,66 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     state (B, H, K, V) -> (out (B, T, H, V) in r's dtype, final state
     float32). Any T >= 0: the reference pads a ragged T with identity steps
     for its chunked kernel, which changes no result."""
-    if resolve_kernel_mode(mode, _device(r, k, v, w, u, state)) == "ref":
-        return _ref.wkv6_ref(r, k, v, w, u, state)
-    return _wkv6.wkv6(r, k, v, w, u, state)
+    xs = (r, k, v, w, u, state)
+    kernel = resolve_kernel_mode(mode, _device(*xs)) == "cuda"
+    if _needs_grad(xs):
+        return WKV6Fn.apply(*xs, kernel)
+    return _wkv6.wkv6(*xs) if kernel else _ref.wkv6_ref(*xs)
 
 
 def rg_lru_scan(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor, *,
                 mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """The RG-LRU's scan ``h_t = a_t * h_{t-1} + g_t``: a, g (B, T, R), h0
     (B, R), float32 -> (y (B, T, R), hT (B, R)) float32. Kernel and plain
-    version agree bit for bit."""
-    if resolve_kernel_mode(mode, _device(a, g, h0)) == "ref":
-        return _ref.rg_lru_scan_ref(a, g, h0)
-    return _rg_lru.rg_lru_scan(a, g, h0)
+    version agree bit for bit, forward and backward."""
+    xs = (a, g, h0)
+    kernel = resolve_kernel_mode(mode, _device(*xs)) == "cuda"
+    if _needs_grad(xs):
+        return RGLRUScanFn.apply(*xs, kernel)
+    return _rg_lru.rg_lru_scan(*xs) if kernel else _ref.rg_lru_scan_ref(*xs)
+
+
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class WKV6Fn(torch.autograd.Function):
+    """``wkv6`` with its gradient: the kernels (``wkv6``, ``wkv6_bwd``) when
+    ``kernel``, else the plain versions (``wkv6_ref``, ``wkv6_bwd_ref``).
+    Saves its inputs only; the backward recomputes the states from them, so
+    under ``torch.utils.checkpoint`` the recompute pass makes them again.
+    Gradients: dr, dk, dv in r's dtype (float32 sums, rounded once), dw,
+    du and dstate float32."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, kernel: bool):
+        ctx.kernel = kernel
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return (_wkv6.wkv6 if kernel else _ref.wkv6_ref)(r, k, v, w, u, state)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        bwd = _wkv6.wkv6_bwd if ctx.kernel else _ref.wkv6_bwd_ref
+        return (*bwd(r, k, v, w, u, state, dout.to(r.dtype), dstate), None)
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """``rg_lru_scan`` with its gradient: the kernels (``rg_lru_scan``,
+    ``rg_lru_scan_bwd``) when ``kernel``, else the plain versions. Saves a,
+    h0 and its output y (the h_{t-1} of the backward)."""
+
+    @staticmethod
+    def forward(ctx, a, g, h0, kernel: bool):
+        ctx.kernel = kernel
+        y, h_t = (_rg_lru.rg_lru_scan if kernel else _ref.rg_lru_scan_ref)(a, g, h0)
+        ctx.save_for_backward(a, y, h0)
+        return y, (h_t.clone() if h_t is h0 else h_t)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dh_t):
+        a, y, h0 = ctx.saved_tensors
+        bwd = _rg_lru.rg_lru_scan_bwd if ctx.kernel else _ref.rg_lru_scan_bwd_ref
+        return (*bwd(a, y, h0, dy, dh_t), None)

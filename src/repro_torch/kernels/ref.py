@@ -228,6 +228,83 @@ def rg_lru_scan_ref(a: torch.Tensor, g: torch.Tensor,
     return y, h
 
 
+def rg_lru_scan_bwd_ref(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
+                        dy: torch.Tensor, dhT: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`rg_lru_scan_ref`, a plain reverse loop over T
+    (the arithmetic of ``csrc/rg_lru.cu::rg_lru_scan_bwd`` bit for bit).
+
+    a, y (the forward's output), dy (B, T, R) and h0, dhT (B, R), float32.
+    With ``c = dhT`` and, for t = T-1 .. 0, ``dh_t = dy_t + c`` (one
+    rounded add), ``dg_t = dh_t``, ``da_t = dh_t * h_{t-1}`` (``h_{t-1}``
+    is ``y_{t-1}``, or h0 at t = 0) and ``c = a_t * dh_t`` (one rounded
+    multiply): the forward's ``h_t = a_t h_{t-1} + g_t`` read backwards.
+    Returns (da, dg (B, T, R), dh0 = c (B, R)), float32."""
+    t_len = a.shape[1]
+    da, dg = torch.empty_like(a), torch.empty_like(a)
+    c = dhT.to(torch.float32, copy=True)
+    for t in range(t_len - 1, -1, -1):
+        dh = torch.add(dy[:, t], c)
+        dg[:, t] = dh
+        da[:, t] = torch.mul(dh, y[:, t - 1] if t else h0)
+        c = torch.mul(a[:, t], dh)
+    return da, dg, c
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                 u: torch.Tensor, s0: torch.Tensor, dout: torch.Tensor,
+                 dsT: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6_ref`, plain loops over T in float32 (what
+    ``jax.vjp`` of ``repro/kernels/ref.py::wkv6_ref`` computes).
+
+    Inputs as :func:`wkv6_ref`, with dout (B, T, H, V) and dsT (B, H, K, V),
+    the gradients of its two outputs. A forward loop keeps every state
+    ``S_{t-1}``; then, from ``G = dsT`` backwards, per step (``G`` the
+    gradient of ``S_t``, ``Gs`` it with the rows where ``w_i == 0`` zeroed,
+    as the reset's select passes nothing to the earlier state):
+    ``dr_t = (S_{t-1} + diag(u) k_t v_t^T) do_t``,
+    ``dk_t = G v_t + u r_t (v_t . do_t)``,
+    ``dv_t = G^T k_t + (sum_i u_i r_i k_i) do_t``,
+    ``dw_t = rowsum(Gs * S_{t-1})`` (0 at a reset row of a finite state),
+    ``du += r_t k_t (v_t . do_t)`` and ``G = diag(w_t) Gs + r_t do_t^T``.
+    Returns (dr, dk, dv in r's dtype; dw (B, T, H, K), du (H, K) summed
+    over the batch in order, ds0 = G; float32)."""
+    b, t_len, h, dk = r.shape
+    f32 = [x.to(torch.float32) for x in (r, k, v, w, dout)]
+    rf, kf, vf, wf, dof = f32
+    uf = u.to(torch.float32)
+    s = s0.to(torch.float32, copy=True)
+    states = []
+    for t in range(t_len):
+        states.append(s)
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (B, H, K, V)
+        wd = wf[:, t, :, :, None]
+        s = torch.where(wd == 0.0, kv, wd * s + kv)
+    dr, dkk, dw = (torch.empty((b, t_len, h, dk), dtype=torch.float32, device=r.device)
+                   for _ in range(3))
+    dv = torch.empty_like(vf)
+    du = torch.zeros((b, h, dk), dtype=torch.float32, device=r.device)
+    g = dsT.to(torch.float32, copy=True)
+    for t in range(t_len - 1, -1, -1):
+        rt, kt, vt, wt, dot = (x[:, t] for x in f32)
+        s_prev = states[t]
+        vdo = (vt * dot).sum(-1, keepdim=True)                    # (B, H, 1)
+        kv = kt[..., :, None] * vt[..., None, :]
+        dr[:, t] = torch.einsum("bhkv,bhv->bhk", s_prev + uf[None, :, :, None] * kv, dot)
+        dkk[:, t] = torch.einsum("bhkv,bhv->bhk", g, vt) + uf * rt * vdo
+        ruk = (uf * rt * kt).sum(-1, keepdim=True)
+        dv[:, t] = torch.einsum("bhkv,bhk->bhv", g, kt) + ruk * dot
+        gs = torch.where(wt[..., :, None] == 0.0, torch.zeros_like(g), g)
+        dw[:, t] = (gs * s_prev).sum(-1)
+        du = du + rt * kt * vdo
+        g = wt[..., :, None] * gs + rt[..., :, None] * dot[..., None, :]
+    du_sum = du[0].clone() if b else torch.zeros((h, dk), dtype=torch.float32,
+                                                   device=r.device)
+    for i in range(1, b):
+        du_sum = du_sum + du[i]
+    return dr.to(r.dtype), dkk.to(k.dtype), dv.to(v.dtype), dw, du_sum, g
+
+
 _WKV_SPLIT = 4      # partial sums per state column in csrc/wkv6.cu
 
 

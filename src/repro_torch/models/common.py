@@ -43,18 +43,27 @@ class ParamTree(nn.Module):
     frozen parameter the copy is made at first use and kept until the
     parameter changes in place (its version counter moves) or the tree is
     moved (``.to``); a parameter being trained gets a fresh, differentiable
-    cast at every call, as the reference casts at every call."""
+    cast at every call, as the reference casts at every call.
 
-    def __init__(self, tree: dict):
+    ``stacked`` is the family's layout of the root's ``blocks`` in the
+    reference: True where it stacks them on a leading layer axis (the
+    transformer families and RWKV-6, ``jax.vmap``'s stack), False where it
+    keeps a list of layers (recurrentgemma's mixed layers). Each family's
+    init states it; the optimizer and checkpoints read it as
+    ``stacked_blocks``, and a subtree carries its root's."""
+
+    def __init__(self, tree: dict, *, stacked: bool):
         super().__init__()
         self._casts: dict = {}
+        self.stacked_blocks = stacked
         for name, value in tree.items():
             if isinstance(value, torch.Tensor):
                 self.register_parameter(name, nn.Parameter(value, requires_grad=False))
             elif isinstance(value, dict):
-                self.add_module(name, ParamTree(value))
+                self.add_module(name, ParamTree(value, stacked=stacked))
             else:
-                self.add_module(name, nn.ModuleList(ParamTree(v) for v in value))
+                self.add_module(name, nn.ModuleList(ParamTree(v, stacked=stacked)
+                                                    for v in value))
 
     def mat(self, name: str, dtype: torch.dtype) -> torch.Tensor:
         """Parameter ``name`` rounded to ``dtype``: the parameter itself
@@ -109,51 +118,79 @@ def tree_unflatten(tree, leaves) -> dict:
     return tree_map(lambda _: next(it), tree)
 
 
-def leaf_groups(tree: dict) -> list[tuple[tuple[str, ...], list]]:
+def stacked_path(path) -> bool:
+    """Whether a :func:`leaf_groups` path is a leaf of stacked ``blocks``
+    (one tensor a layer), not one of a list layout's layers."""
+    return path[0] == "blocks" and not isinstance(path[1], int)
+
+
+def leaf_groups(tree: dict, stacked: bool) -> list[tuple[tuple, list]]:
     """The reference's leaves of a port tree: ``(path, tensors)`` with one
-    tensor for a leaf outside ``blocks``, and one a layer, in layer order,
-    for a leaf of ``blocks`` (the reference stacks them on a leading axis
-    under the same path)."""
-    out = []
+    tensor for a leaf outside ``blocks``. A leaf of ``blocks`` takes the
+    reference's layout of them (``ParamTree.stacked_blocks``): with
+    ``stacked``, one group a leaf path with one tensor a layer, in layer
+    order (the reference stacks them on a leading axis); else a list, one
+    group a leaf of each layer, its path ``("blocks", i, ...)``.
 
-    def walk(node, path):
-        for key, val in node.items():
-            if key == "blocks" and not path:
-                for sub, _ in leaf_groups(val[0]):
-                    out.append((("blocks", *sub), [get_path(layer, sub) for layer in val]))
-            elif isinstance(val, dict):
-                walk(val, (*path, key))
-            else:
-                out.append(((*path, key), [val]))
-
-    walk(tree, ())
+    Module-level recursion, no closure: a recursive inner function that
+    holds ``out`` is a reference cycle, and would keep every tensor listed
+    (a step's gradients) alive until the garbage collector ran."""
+    out: list = []
+    _walk_groups(tree, (), stacked, out)
     return out
 
 
+def _walk_groups(node: dict, path: tuple, stacked: bool, out: list) -> None:
+    for key, val in node.items():
+        if key == "blocks" and not path:
+            if stacked:
+                for sub, _ in leaf_groups(val[0], stacked):
+                    out.append((("blocks", *sub), [get_path(layer, sub) for layer in val]))
+            else:
+                for i, layer in enumerate(val):
+                    out.extend((("blocks", i, *sub), ts)
+                               for sub, ts in leaf_groups(layer, stacked))
+        elif isinstance(val, dict):
+            _walk_groups(val, (*path, key), stacked, out)
+        else:
+            out.append(((*path, key), [val]))
+
+
 def get_path(tree, path):
-    """The node at ``path`` (a tuple of keys) of a nested dict."""
+    """The node at ``path`` (a tuple of keys, list indices as ints) of a
+    nested dict."""
     for key in path:
         tree = tree[key]
     return tree
 
 
 def nest(items) -> dict:
-    """A nested dict from ``(path, value)`` pairs."""
+    """A nested dict from ``(path, value)`` pairs; a level keyed by ints
+    becomes a list (the list layout of ``blocks``)."""
     root: dict = {}
     for path, val in items:
         node = root
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = val
-    return root
+    return _listify(root)
 
 
-def stack_tree(tree: dict) -> dict:
-    """A port tree (``blocks`` a list of layers) in the reference's layout,
-    ``blocks`` stacked on a leading layer axis (detached copies)."""
-    return nest((path, ts[0].detach() if path[0] != "blocks"
-                 else torch.stack([t.detach() for t in ts]))
-                for path, ts in leaf_groups(tree))
+def _listify(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return [_listify(node[i]) for i in range(len(node))]
+    return {k: _listify(v) for k, v in node.items()}
+
+
+def stack_tree(tree: dict, stacked: bool) -> dict:
+    """A port tree (``blocks`` a list of layers) in the reference's layout
+    (:func:`leaf_groups`): ``blocks`` stacked on a leading layer axis (a
+    copy), or a list of layers; every leaf detached."""
+    return nest((path, torch.stack([t.detach() for t in ts]) if stacked_path(path)
+                 else ts[0].detach())
+                for path, ts in leaf_groups(tree, stacked))
 
 
 # Leaves the forward pass reads in float32 whatever the compute dtype (besides
@@ -182,14 +219,16 @@ def hold(node: dict, dtype: torch.dtype) -> dict:
 
 def params_from_numpy(tree: dict, num_layers: int,
                       device: str | torch.device | None = None,
-                      held: torch.dtype | None = None) -> ParamTree:
-    """A parameter tree in the reference's layout, of numpy arrays or
-    tensors, carried into a float32 :class:`ParamTree` on ``device``
-    (default: the CUDA device). ``blocks`` is stacked on a leading layer
-    axis (as ``jax.vmap`` leaves it), or a list of layers (a model of mixed
-    layers, recurrentgemma's). With ``held``, a serving tree in that dtype
-    (:func:`hold`), each layer held as it is carried, so the float32
-    layers never exist on ``device`` together."""
+                      held: torch.dtype | None = None, *, stacked: bool) -> ParamTree:
+    """A parameter tree of numpy arrays or tensors, carried into a float32
+    :class:`ParamTree` of the family's layout ``stacked`` on ``device``
+    (default: the CUDA device). ``blocks`` may come stacked on a leading
+    layer axis (the reference's layout where ``stacked``, as ``jax.vmap``
+    leaves it) or as a list of layers (the reference's layout of mixed
+    layers, recurrentgemma's, and the port's own ``ParamTree.tree()``).
+    With ``held``, a serving tree in that dtype (:func:`hold`), each layer
+    held as it is carried, so the float32 layers never exist on ``device``
+    together."""
     dev = resolve_device(device)
 
     def convert(node, layer=None):
@@ -208,7 +247,7 @@ def params_from_numpy(tree: dict, num_layers: int,
     blocks = tree["blocks"]
     out["blocks"] = [done(convert(b)) for b in blocks] if isinstance(blocks, (list, tuple)) \
         else [done(convert(blocks, i)) for i in range(num_layers)]
-    return ParamTree(done(out))
+    return ParamTree(done(out), stacked=stacked)
 
 
 # ---------------------------------------------------------------------------

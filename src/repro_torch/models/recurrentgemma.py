@@ -122,7 +122,7 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
                                 device=generator.device),
         "lm_head": C.dense_init(generator, cfg.d_model, cfg.vocab_size, scale=0.02),
     }
-    return ParamTree(held(tree))
+    return ParamTree(held(tree), stacked=False)
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig,
@@ -133,7 +133,7 @@ def params_from_numpy(tree: dict, cfg: ArchConfig,
     on ``device`` (default: the CUDA device); with ``serving``, a serving
     tree in ``cfg.dtype``."""
     return C.params_from_numpy(tree, cfg.num_layers, device,
-                               _dtype(cfg) if serving else None)
+                               _dtype(cfg) if serving else None, stacked=False)
 
 
 # ---------------------------------------------------------------------------

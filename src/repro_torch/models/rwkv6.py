@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -96,7 +97,7 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> ParamTree:
         "blocks": [init_layer(generator, cfg) for _ in range(cfg.num_layers)],
         "lnf_w": full(1.0), "lnf_b": full(0.0),
         "lm_head": C.dense_init(generator, d, cfg.vocab_size, scale=0.02),
-    })
+    }, stacked=True)
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig,
@@ -105,7 +106,7 @@ def params_from_numpy(tree: dict, cfg: ArchConfig,
     (``blocks`` stacked on a leading layer axis, as ``jax.vmap`` leaves
     it), carried into the port's :class:`ParamTree` on ``device`` (default:
     the CUDA device)."""
-    return C.params_from_numpy(tree, cfg.num_layers, device)
+    return C.params_from_numpy(tree, cfg.num_layers, device, stacked=True)
 
 
 # ---------------------------------------------------------------------------
@@ -214,10 +215,15 @@ def _logits(params: ParamTree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor
 
 def _run(params: ParamTree, x: torch.Tensor, cache: dict, cfg: ArchConfig):
     """The layer loop shared by forward, prefill and decode (the reference's
-    ``lax.scan`` over stacked layers). Returns (x, a new cache)."""
+    ``lax.scan`` over stacked layers). With ``cfg.remat`` and grad on, each
+    layer is checkpointed (its forward runs again in the backward pass), as
+    the reference's ``jax.checkpoint`` of the layer. Returns (x, a new
+    cache)."""
+    remat = cfg.remat and torch.is_grad_enabled()
     states = []
     for i, p in enumerate(params.blocks):
-        x, *st = _layer(p, x, cache["tm_x"][i], cache["cm_x"][i], cache["wkv"][i], cfg)
+        args = (p, x, cache["tm_x"][i], cache["cm_x"][i], cache["wkv"][i], cfg)
+        x, *st = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
         states.append(st)
     new = {name: torch.stack([s[j] for s in states]).to(cache[name].dtype)
            for j, name in enumerate(("tm_x", "cm_x", "wkv"))}

@@ -90,7 +90,7 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
     }
     if cfg.family == "vlm":
         tree["patch_proj"] = C.dense_init(generator, cfg.d_patch, cfg.d_model)
-    return ParamTree(held(tree))
+    return ParamTree(held(tree), stacked=True)
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig,
@@ -101,7 +101,7 @@ def params_from_numpy(tree: dict, cfg: ArchConfig,
     :class:`ParamTree` on ``device`` (default: the CUDA device); with
     ``serving``, a serving tree in ``cfg.dtype``."""
     return C.params_from_numpy(tree, cfg.num_layers, device,
-                               _dtype(cfg) if serving else None)
+                               _dtype(cfg) if serving else None, stacked=True)
 
 
 # ---------------------------------------------------------------------------

@@ -70,8 +70,10 @@ from repro_torch.storage.format import (JOURNAL_DIR, LAYOUT_STATIC_FIELDS,
 # that the manifest does not reference is swept by a writable open
 _ORPHAN_BASE_RE = re.compile(
     r"^(?:tree|layout)(?:-\d{5})?\.npz$|^(?:lrd|lsd|enc)(?:-\d{5})?\.npy$"
-    r"|^manifest\.json\.tmp$")
+    r"|^manifest\.json\.tmp$|^compact-base\.npy$")
 _ORPHAN_SEG_RE = re.compile(r"^seg-\d{5}\.(?:lrd|lsd)\.npy$")
+# the compaction's scratch copy of the base rows in id order (_BaseRows)
+_STAGED_BASE_FILE = "compact-base.npy"
 
 _EMPTY_STATICS = {k: 0 for k in LAYOUT_STATIC_FIELDS}
 _I32 = torch.int32
@@ -112,17 +114,35 @@ class _ConcatRows:
 
 
 class _BaseRows:
-    """Original-id-order view of a SavedIndex's LRD memory map (rows
-    permuted back through ``inv_perm``; fancy indexing reads only the
-    sliced rows, one row-sized read each)."""
+    """A SavedIndex's LRD rows in original id order, the compaction's
+    replay source for the base. The rows are permuted back through
+    ``inv_perm`` once, into a scratch ``.npy`` file at ``path`` (the only
+    random row reads, each block's read in position order); every pass of
+    the chunked build then reads contiguous rows of that file. ``close``
+    releases the map; the caller removes the file."""
 
-    def __init__(self, saved: SavedIndex):
-        self._saved = saved
-        self._inv_perm = np.asarray(saved.small["inv_perm"])
+    STAGE_ROWS = 1 << 16
+
+    def __init__(self, saved: SavedIndex, path: str):
+        inv_perm = np.asarray(saved.small["inv_perm"])
+        lrd = saved._mapped("lrd")
         self.shape = (saved.num_series, saved.series_len)
+        t0 = time.perf_counter()
+        self._rows = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32,
+                                               shape=self.shape)
+        for lo in range(0, self.shape[0], self.STAGE_ROWS):
+            pos = inv_perm[lo:lo + self.STAGE_ROWS]
+            order = np.argsort(pos, kind="stable")
+            block = np.empty((pos.shape[0], self.shape[1]), np.float32)
+            block[order] = lrd[pos[order]]
+            self._rows[lo:lo + pos.shape[0]] = block
+        self.stage_seconds = time.perf_counter() - t0
 
     def __getitem__(self, sl: slice) -> np.ndarray:
-        return self._saved._mapped("lrd")[self._inv_perm[sl]]
+        return self._rows[sl]
+
+    def close(self) -> None:
+        self._rows = None
 
 
 def _merge_triplet(d0, p0, i0, d1, p1, i1, k: int):
@@ -441,18 +461,26 @@ class Hercules:
                                         or self.saved is None):
             return self.manifest
         config = self.config
-        parts: list = []
-        if self.saved is not None:
-            parts.append(_BaseRows(self.saved))
-        seg_maps = self._journal_rows()
-        parts.extend(seg_maps)
-        source = _ChunkedBase(_ConcatRows(parts), chunk_size)
-
         gen = self.generation + 1
         t0 = time.perf_counter()
-        names, statics, max_depth, timings = stream_base_files(
-            source, self.path, config, generation=gen, prefetch=prefetch,
-            codec=target_codec, device=self.device)
+        staged_path = os.path.join(self.path, _STAGED_BASE_FILE)
+        base = None
+        try:
+            parts: list = []
+            if self.saved is not None:
+                base = _BaseRows(self.saved, staged_path)
+                parts.append(base)
+            parts.extend(self._journal_rows())
+            source = _ChunkedBase(_ConcatRows(parts), chunk_size)
+            names, statics, max_depth, timings = stream_base_files(
+                source, self.path, config, generation=gen, prefetch=prefetch,
+                codec=target_codec, device=self.device)
+        finally:
+            if base is not None:
+                base.close()
+            parts = source = None
+            if os.path.exists(staged_path):
+                os.remove(staged_path)
         extra = self._extra_with_provenance(None)
         extra["build"] = timings
         extra["compact"] = {
@@ -460,6 +488,7 @@ class Hercules:
             "journal_rows": journal["rows"],
             "segments": len(journal["segments"]),
             "codec": target_codec,
+            "stage_seconds": round(base.stage_seconds, 4) if base else 0.0,
             "seconds": round(time.perf_counter() - t0, 4),
         }
         extra.pop("append", None)
@@ -467,7 +496,6 @@ class Hercules:
             self.path, config, max_depth, statics, extra=extra, files=names,
             journal=None, generation=gen, base=True,      # <- commit point
             codec=target_codec)
-        del seg_maps, source, parts
 
         old = self.saved
         self.manifest = manifest

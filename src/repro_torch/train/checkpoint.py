@@ -4,9 +4,11 @@ reference's file layout, so that each package reads the other's.
 A checkpoint is ``step_XXXXXXXX.npz`` in ``ckpt_dir``: one array per leaf
 of the state, keyed by its path joined with ``/`` (``params/blocks/attn/wq``,
 ``opt/m/...``, ``opt/step``), ``blocks`` stacked on a leading layer axis
-as JAX stacks them, and a JSON ``__meta__`` holding the step and the
-caller's extra metadata. It is written to ``.npz.tmp`` and then renamed,
-so a crash mid-write never corrupts the latest checkpoint. The
+as JAX stacks them, or a list of layers (``params/blocks/0/rec/w_x``) where
+the reference keeps one (recurrentgemma), and a JSON ``__meta__`` holding
+the step and the caller's extra metadata. It is written to ``.npz.tmp``
+and then renamed, so a crash mid-write never corrupts the latest
+checkpoint. The
 reference's ``reshard_checkpoint`` re-places leaves on a device mesh; one
 card has none, so it has no twin here (``ROADMAP.md``).
 """
@@ -27,7 +29,7 @@ _SEP = "/"
 
 def _flatten(tree, prefix=""):
     if isinstance(tree, C.ParamTree):
-        tree = C.stack_tree(tree.tree())
+        tree = C.stack_tree(tree.tree(), tree.stacked_blocks)
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -69,7 +71,7 @@ def _to_numpy(leaf) -> np.ndarray:
 def save_checkpoint(ckpt_dir: str, step: int, state: dict,
                     extra_meta: dict | None = None) -> str:
     """Atomically persist a tree of tensors (a ``ParamTree`` is written in
-    the reference's stacked layout). Returns the final path."""
+    the reference's layout). Returns the final path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays = {k: _to_numpy(v) for k, v in _flatten(state).items()}
     meta = {"step": step, **(extra_meta or {})}
@@ -93,8 +95,8 @@ def load_checkpoint(ckpt_dir: str, step: int | None = None,
                     device: str | torch.device | None = None) -> tuple[dict, dict]:
     """Load (state, meta): the state's leaves as tensors on ``device``
     (default: the CUDA device), in the reference's layout (``blocks``
-    stacked; ``ModelDef.params_from_numpy`` makes the port's parameters of
-    ``state["params"]``)."""
+    stacked, or a list; ``ModelDef.params_from_numpy`` makes the port's
+    parameters of ``state["params"]``)."""
     dev = resolve_device(device)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:

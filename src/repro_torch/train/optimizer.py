@@ -2,10 +2,12 @@
 (``repro/train/optimizer.py``).
 
 The moments live in the reference's layout: a nested dict of the
-reference's parameter paths, ``blocks`` stacked on a leading layer axis.
-So the int8 blocks are the reference's blocks (a norm vector's padded
-fallback spans the layers, as it does there), and a checkpoint of either
-package holds the other's optimizer state. The parameters are the port's
+reference's parameter paths, ``blocks`` stacked on a leading layer axis,
+or a list of layers where the reference keeps one (recurrentgemma's mixed
+layers; ``models/common.py::leaf_groups``). So the int8 blocks are the
+reference's blocks (a stacked norm vector's padded fallback spans the
+layers, as it does there), and a checkpoint of either package holds the
+other's optimizer state. The parameters are the port's
 :class:`~repro_torch.models.common.ParamTree` and are updated in place;
 the update runs in float32 whatever their dtype. Float32 moments are
 updated in place as well.
@@ -99,15 +101,20 @@ def _tree(params) -> dict:
     return params.tree() if isinstance(params, C.ParamTree) else params
 
 
+def _groups(tree, params: C.ParamTree) -> list:
+    """``tree``'s leaf groups in the layout of ``params``' blocks."""
+    return C.leaf_groups(_tree(tree), params.stacked_blocks)
+
+
 def _stacked_shape(path, tensors) -> tuple:
-    return ((len(tensors), *tensors[0].shape) if path[0] == "blocks"
+    return ((len(tensors), *tensors[0].shape) if C.stacked_path(path)
             else tuple(tensors[0].shape))
 
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
     """Zero moments in the reference's layout (float32, or int8 blocks),
     and step 0, on the parameters' device."""
-    groups = C.leaf_groups(_tree(params))
+    groups = _groups(params, params)
     dev = groups[0][1][0].device
 
     def moment(path, ts):
@@ -138,13 +145,13 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
     int8 = cfg.moment_dtype == "int8"
     new_m, new_v = [], []
-    for (path, ps), (_, gs) in zip(C.leaf_groups(_tree(params)), C.leaf_groups(grads)):
+    for (path, ps), (_, gs) in zip(_groups(params, params), _groups(grads, params)):
         m, v = C.get_path(state["m"], path), C.get_path(state["v"], path)
         shape = _stacked_shape(path, ps)
         if int8:
             size = math.prod(shape)
             m, v = _dequantize(m, shape, size), _dequantize(v, shape, size)
-        stacked = path[0] == "blocks"
+        stacked = C.stacked_path(path)
         for i, (p, g) in enumerate(zip(ps, gs)):
             mi, vi = (m[i], v[i]) if stacked else (m, v)
             g = (g * scale if scale is not None else g).to(torch.float32)

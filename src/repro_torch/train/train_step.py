@@ -32,12 +32,8 @@ def make_grad_fn(model: ModelDef, cfg: ArchConfig, tcfg: TrainConfig) -> Callabl
     """Returns grad_fn(params, batch) -> (metrics, grads): the loss's
     metrics (``loss`` among them) and its gradient, a tree of the
     parameters' shape. Turns ``requires_grad`` on for every parameter.
-    The hybrid family (recurrentgemma) is not trained yet."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: training the hybrid family is not ported yet (the rg_lru_scan "
-            "kernel has no backward, and the optimizer and checkpoints take stacked "
-            "blocks); see ROADMAP.md, queue 1 item 5")
+    On CUDA tensors the recurrences' gradients are kernels of their own
+    (``kernels/ops.py``: ``WKV6Fn``, ``RGLRUScanFn``)."""
 
     def grad_fn(params, batch):
         tree = params.tree()

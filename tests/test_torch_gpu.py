@@ -5,7 +5,9 @@ card, and through the store: append, query with the journal merged,
 compact), the banded-DTW kernel and ``dtw_knn``, the sanitized pinned
 reader, RWKV-6 logits and tokens against the CPU's, the dense, vlm and MoE
 transformers' logits, tokens, train step and AdamW against the CPU's, and
-the RG-LRU scan kernel and recurrentgemma against the CPU.
+the RG-LRU scan kernel and recurrentgemma against the CPU, and the
+recurrences' gradient kernels and both recurrent families' train steps
+against the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -30,7 +32,12 @@ the bf16 output, rounded from float32 sums in another order, holds the
 bfloat16 tolerance; and bit for bit ``wkv6_fma_ref`` (NaNs compared as one
 word: the card's fmaf and the reference's float64 give NaNs other payloads).
 ``rg_lru_scan``: bit for bit ``rg_lru_scan_ref`` (a rounded multiply, then
-a rounded add, a step), on the card and on the CPU. ``dtw_band``: bit for bit ``dtw_band_ref`` (each DP cell one rounded add of
+a rounded add, a step), on the card and on the CPU, and so is
+``rg_lru_scan_bwd`` to ``rg_lru_scan_bwd_ref``; ``wkv6_bwd``: float32
+gradients within 1e-5 of each tensor's largest magnitude of
+``wkv6_bwd_ref`` (sums in another order), bf16 ones within 8e-3 of it (a
+bf16 step, 2^-8, rounding sums taken in another order), and two launches
+bit-equal (no atomics). ``dtw_band``: bit for bit ``dtw_band_ref`` (each DP cell one rounded add of
 an exact minimum), so ``dtw_knn`` on the card equals the CPU's bit for bit.
 Transformers, MoE and Griffin (float32 smoke configs): logits, aux and
 metrics within 1e-4, each gradient within 1e-4 of its tensor's largest
@@ -944,8 +951,92 @@ def test_rg_lru_scan_kernel_refuses_what_it_cannot_take(cuda):
         krg.rg_lru_scan(a.double(), g, h0)
     with pytest.raises(ValueError, match="shapes"):
         krg.rg_lru_scan(a, g, h0[:1])
-    with pytest.raises(NotImplementedError, match="no backward"):
-        krg.rg_lru_scan(a.requires_grad_(True), g, h0)
+    y, _ = krg.rg_lru_scan(a, g, h0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        krg.rg_lru_scan_bwd(a, y.cpu(), h0, g, h0)
+    with pytest.raises(TypeError, match="float32"):
+        krg.rg_lru_scan_bwd(a, y, h0, g.double(), h0)
+    with pytest.raises(ValueError, match="shapes"):
+        krg.rg_lru_scan_bwd(a, y, h0, g, h0[:1])
+
+
+@pytest.mark.parametrize("b,t,r", [(4, 512, 2560), (4, 1, 2560), (3, 37, 77), (1, 9, 1),
+                                   (2, 0, 5)])
+def test_rg_lru_scan_bwd_kernel_equals_plain_bitwise(cuda, b, t, r):
+    """The scan's gradient at the training and decode shapes, ragged shapes
+    and T=0: da, dg and dh0 equal ``rg_lru_scan_bwd_ref`` in every bit, on
+    the card and on the CPU; one launch a call (none at T=0)."""
+    rng = np.random.default_rng(41)
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, (b, t, r)).astype(np.float32)).to(cuda)
+    h0 = randn(42, b, r).to(cuda)
+    y, _ = krg.rg_lru_scan(a, randn(43, b, t, r).to(cuda), h0)
+    dy, dht = randn(44, b, t, r).to(cuda), randn(45, b, r).to(cuda)
+    before = krg.rg_lru_scan_bwd.launches
+    got = krg.rg_lru_scan_bwd(a, y, h0, dy, dht)
+    assert krg.rg_lru_scan_bwd.launches == before + (1 if t else 0)
+    args = (a, y, h0, dy, dht)
+    for x, want, cpu in zip(got, tref.rg_lru_scan_bwd_ref(*args),
+                            tref.rg_lru_scan_bwd_ref(*(v.cpu() for v in args))):
+        assert torch.equal(x.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(x.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def _wkv_grad_args(seed, b, t, h, dk, dv, dtype, cuda):
+    rng = np.random.default_rng(seed)
+
+    def n(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    r, k, v, dout = n(b, t, h, dk), n(b, t, h, dk), n(b, t, h, dv), n(b, t, h, dv)
+    w = torch.sigmoid(n(b, t, h, dk))
+    if t > 3:
+        w[:, 3, :, : dk // 2] = 0.0            # resets in one step
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, n(h, dk), n(b, h, dk, dv),
+            dout.to(dtype), n(b, h, dk, dv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dk,dv", [(2, 67, 3, 64, 64), (1, 33, 2, 33, 17),
+                                         (2, 1, 4, 64, 64), (1, 0, 2, 8, 8),
+                                         (1, 20, 1, 1, 1)])
+def test_wkv6_bwd_kernel_matches_plain(cuda, b, t, h, dk, dv, dtype):
+    """The gradient's kernel against ``wkv6_bwd_ref``: float32 within 1e-5
+    of each tensor's largest magnitude (bf16 gradients within a bf16 step,
+    8e-3 of it), dw exactly 0 at the reset rows, the dtypes of the inputs,
+    one launch a call, and a second launch bit-equal to the first."""
+    args = _wkv_grad_args(46, b, t, h, dk, dv, dtype, cuda)
+    before = kwkv.wkv6_bwd.launches
+    got = kwkv.wkv6_bwd(*args)
+    assert kwkv.wkv6_bwd.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    for x, want in zip(got, tref.wkv6_bwd_ref(*args)):
+        assert x.dtype == want.dtype and x.shape == want.shape
+        biggest = float(want.abs().max()) if want.numel() else 0.0
+        np.testing.assert_allclose(x.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   rtol=0, atol=tol * max(biggest, 1e-30))
+    assert not got[3][args[3] == 0.0].any()
+    for x, y in zip(got, kwkv.wkv6_bwd(*args)):
+        assert torch.equal(x, y)
+
+
+def test_recurrent_train_steps_on_the_card_equal_cpu(cuda):
+    """rwkv6 and recurrentgemma smoke models: a train step's metrics within
+    1e-4 and gradients within 1e-4 of each tensor's largest magnitude, the
+    card's through the backward kernels (launched), the CPU's through the
+    plain backward versions."""
+    for arch, kname in (("rwkv6-7b", kwkv.wkv6_bwd), ("recurrentgemma-2b", krg.rg_lru_scan_bwd)):
+        cfg, model, gpu, cpu = _smoke_pair(cuda, arch)
+        batch = _dense_batch(cfg, 47, 2, 12, "cpu")
+        grad_fn = TTS.make_grad_fn(model, cfg, TTS.TrainConfig())
+        before = kname.launches
+        mg, gg = grad_fn(gpu, {k: v.to(cuda) for k, v in batch.items()})
+        assert kname.launches > before
+        mc, gc = grad_fn(cpu, batch)
+        for k in mc:
+            assert_close(mg[k], mc[k])
+        for a, b in zip(TMC.tree_leaves(gg), TMC.tree_leaves(gc)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()))
 
 
 def _smoke_pair(cuda, arch):

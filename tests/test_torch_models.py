@@ -217,7 +217,7 @@ def test_compute_weight_copies():
     made once, the parameter itself where rounding changes nothing, and
     fresh copies, in every subtree, after the tree is moved."""
     params = TR.ParamTree({"w": torch.randn(8, 4), "sub": {"v": torch.randn(3)},
-                           "blocks": [{"x": torch.ones(2)}]})
+                           "blocks": [{"x": torch.ones(2)}]}, stacked=True)
     w = params.w
     assert params.mat("w", torch.float32) is w
     c = params.mat("w", torch.bfloat16)

@@ -86,7 +86,8 @@ def moe_pair(arch, **changes):
     jcfg = dataclasses.replace(jget_smoke(arch), **changes)
     tcfg = dataclasses.replace(get_smoke(arch), **changes)
     jp = jax.tree.map(np.asarray, JM.init_moe(jax.random.PRNGKey(3), jcfg))
-    return jcfg, tcfg, jp, TC.ParamTree({k: torch.from_numpy(v.copy()) for k, v in jp.items()})
+    return jcfg, tcfg, jp, TC.ParamTree({k: torch.from_numpy(v.copy()) for k, v in jp.items()},
+                                         stacked=True)
 
 
 def probs_of(seed, b, t, e, scale=2.0):
@@ -258,7 +259,7 @@ def test_train_step_gradients_match_reference(arch):
     for k in jmet:
         close(tmet[k], jmet[k])
     want = _leaves(jgrads)
-    got = _leaves(TC.stack_tree(tgrads))
+    got = _leaves(TC.stack_tree(tgrads, True))
     assert set(got) == set(want)
     assert ("blocks", "moe", "router") in got
     for path, g in got.items():
@@ -291,7 +292,7 @@ def test_ragged_wave_spends_capacity_on_pads_as_the_reference_does():
 def test_params_from_numpy_carries_the_moe_tree():
     jcfg, tcfg, jparams, tparams = pair("moonshot-v1-16b-a3b")
     want = _leaves(jax.tree.map(np.asarray, jparams))
-    got = _leaves(TC.stack_tree(tparams.tree()))
+    got = _leaves(TC.stack_tree(tparams.tree(), True))
     assert set(got) == set(want)
     for path, t in got.items():
         np.testing.assert_array_equal(t.numpy(), want[path])
@@ -300,7 +301,7 @@ def test_params_from_numpy_carries_the_moe_tree():
     assert layer.router.shape == (d, e) and layer.w_gate.shape == (e, d, ff)
     assert layer.w_down.shape == (e, ff, d)
     fresh = TT.init_params(torch.Generator().manual_seed(0), tcfg)
-    assert {p: t.shape for p, t in _leaves(TC.stack_tree(fresh.tree())).items()} == \
+    assert {p: t.shape for p, t in _leaves(TC.stack_tree(fresh.tree(), True)).items()} == \
         {p: t.shape for p, t in got.items()}
 
 

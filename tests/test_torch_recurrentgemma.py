@@ -80,7 +80,7 @@ def rec_layer():
     ``init_layer``: (numpy dict, port ParamTree)."""
     jcfg = jget_smoke(ARCH)
     jp = jax.tree.map(np.asarray, JG.init_layer(jax.random.PRNGKey(4), "rec", jcfg))["rec"]
-    return jp, ParamTree({k: torch.from_numpy(v.copy()) for k, v in jp.items()})
+    return jp, ParamTree({k: torch.from_numpy(v.copy()) for k, v in jp.items()}, stacked=False)
 
 
 def randn(seed, *shape):
@@ -303,11 +303,21 @@ def test_bf16_serving_tree_equals_cast_at_use():
 
 
 def test_dispatch_and_training_not_yet():
+    """The family dispatches to this module, and ``make_grad_fn`` now takes
+    it (``tests/test_torch_recurrent_train.py`` holds the gradients to the
+    reference's): every leaf gets a finite gradient, through the scan's
+    autograd Function."""
     cfg = get_smoke(ARCH)
     model = get_model(cfg)
     assert model.forward is TG.forward and model.params_from_numpy is TG.params_from_numpy
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TS.make_grad_fn(model, cfg, TS.TrainConfig())
+    params = model.init(torch.Generator().manual_seed(0), cfg)
+    _, tb = tokens(cfg, 12, 2, 9)
+    metrics, grads = TS.make_grad_fn(model, cfg, TS.TrainConfig())(params, tb)
+    assert np.isfinite(float(metrics["loss"]))
+    leaves = [g for layer in grads["blocks"] for g in jax.tree.leaves(
+        jax.tree.map(lambda t: t.numpy(), layer))]
+    assert leaves and all(np.isfinite(g).all() for g in leaves)
+    assert np.abs(grads["blocks"][0]["rec"]["lambda"].numpy()).max() > 0
 
 
 def test_entry_points_need_a_card_unless_asked(monkeypatch):

@@ -60,6 +60,7 @@ from repro_torch.storage import (Hercules, IndexFormatError, load_index,
                                  open_index, save_index)
 from repro_torch.storage import format as TF
 from repro_torch.storage.format import FORMAT_VERSION, JOURNAL_DIR, MANIFEST_FILE
+from repro_torch.storage import store as store_mod
 from repro_torch.storage.store import _merge_triplet
 from _torch_threads import one_torch_thread  # noqa: F401
 from tests._hypothesis_compat import given, settings, st
@@ -337,6 +338,40 @@ class TestCrashSafety:
             assert "lrd.npy" in hx.recovered
             assert f"{JOURNAL_DIR}/seg-00000.lrd.npy" in hx.recovered
             assert hx.num_series == NUM_A + NUM_B
+
+    def test_staged_base_copy_is_swept(self, data_a, tmp_path):
+        """Kill during a compaction, while its id-order copy of the base
+        rows exists: a writable reopen sweeps the copy."""
+        path = self._store(data_a, tmp_path)
+        np.save(os.path.join(path, "compact-base.npy"), data_a)
+        with Hercules.open(path, "a", device=CPU) as hx:
+            assert hx.recovered == ["compact-base.npy"]
+            assert hx.num_series == NUM_A
+
+    def test_compaction_stages_base_in_id_order(self, data_a, data_b, tmp_path,
+                                                monkeypatch):
+        """The compaction's replay source holds the base rows in original
+        id order, and its scratch copy is removed when the build fails as
+        when it commits."""
+        path = self._store(data_a, tmp_path)
+        seen = {}
+
+        def failing_build(source, *args, **kwargs):
+            seen["rows"] = np.asarray(source._rows[0:NUM_A]).copy()
+            raise RuntimeError("build failed")
+
+        with Hercules.open(path, "a", device=CPU) as hx:
+            hx.append(data_b)
+            monkeypatch.setattr(store_mod, "stream_base_files", failing_build)
+            with pytest.raises(RuntimeError, match="build failed"):
+                hx.compact()
+            assert not os.path.exists(os.path.join(path, "compact-base.npy"))
+            np.testing.assert_array_equal(seen["rows"], data_a)
+            assert hx.generation == 0 and hx.pending_rows == NUM_B
+            monkeypatch.undo()
+            manifest = hx.compact()
+            assert manifest["extra"]["compact"]["stage_seconds"] >= 0.0
+        assert not os.path.exists(os.path.join(path, "compact-base.npy"))
 
     def test_journal_segment_corruption_detected(self, data_a, data_b,
                                                  tmp_path):

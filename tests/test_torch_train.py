@@ -108,7 +108,7 @@ def batches(cfg, seed, b, t, loss_mask=False):
 
 def port_tree(np_tree, cfg):
     """A reference-layout tree of arrays as a port tree (``blocks`` a list)."""
-    return TC.params_from_numpy(np_tree, cfg.num_layers, "cpu").tree()
+    return TC.params_from_numpy(np_tree, cfg.num_layers, "cpu", stacked=True).tree()
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +207,7 @@ def test_adamw_update_float32_matches_reference(clip):
             for path, t in leaves(tstate[name]).items():
                 close(t, want[path], dict(rtol=1e-5, atol=1e-9))
         want = leaves(jparams)
-        for path, t in leaves(TC.stack_tree(tparams.tree())).items():
+        for path, t in leaves(TC.stack_tree(tparams.tree(), True)).items():
             close(t, want[path], dict(rtol=1e-5, atol=1e-6))
 
 
@@ -226,7 +226,7 @@ def test_adamw_update_int8_matches_reference():
     jparams, jstate, _ = jadamw_update(jparams, g, jstate, ocfg_j)
     tparams, tstate, _ = TO.adamw_update(tparams, port_tree(g, tcfg), tstate, ocfg_t)
     want = leaves(jparams)
-    for path, t in leaves(TC.stack_tree(tparams.tree())).items():
+    for path, t in leaves(TC.stack_tree(tparams.tree(), True)).items():
         close(t, want[path], dict(rtol=1e-5, atol=1e-6))
     for name in ("m", "v"):
         want = leaves(jstate[name])
@@ -271,7 +271,7 @@ def test_gradients_match_jax_value_and_grad(arch):
     for k in jmet:
         close(tmet[k], jmet[k])
     want = leaves(jgrads)
-    got = leaves(TC.stack_tree(tgrads))
+    got = leaves(TC.stack_tree(tgrads, True))
     assert set(got) == set(want)
     for path, g in got.items():
         close_grad(g, want[path])
@@ -354,7 +354,7 @@ def test_checkpoints_cross_load_both_ways(tmp_path, moments):
     assert meta == {"step": 3, "seed": 5}
     params = get_model(tcfg).params_from_numpy(state["params"], tcfg, "cpu")
     want = leaves(jparams)
-    for path, t in leaves(TC.stack_tree(params.tree())).items():
+    for path, t in leaves(TC.stack_tree(params.tree(), True)).items():
         np.testing.assert_array_equal(t.numpy(), np.asarray(want[path]))
     jflat = leaves(jopt["m"]) | {("step",): jopt["step"]}
     tflat = leaves(state["opt"]["m"]) | {("step",): state["opt"]["step"]}

@@ -86,7 +86,8 @@ def batches(cfg, seed, b, t):
 def attn_params(d, spec_j, seed=0):
     """The reference's ``init_attention`` weights, in both packages."""
     jp = JC.init_attention(jax.random.PRNGKey(seed), d, spec_j)
-    return jp, TC.ParamTree({k: torch.tensor(np.asarray(v)) for k, v in jp.items()})
+    return jp, TC.ParamTree({k: torch.tensor(np.asarray(v)) for k, v in jp.items()},
+                          stacked=True)
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +381,7 @@ def test_init_params_has_the_reference_tree(arch):
             else:
                 flat[(*path, k)] = (tuple(v.shape), v.dtype)
 
-    walk(TC.stack_tree(params.tree()))
+    walk(TC.stack_tree(params.tree(), True))
     want = {tuple(k.key for k in path): (tuple(leaf.shape), torch.float32)
             for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
     assert flat == want
