@@ -76,10 +76,15 @@ Phases (any failure ends the run with a non-zero exit):
    window of n = 256, the UCR-Suite convention), k=1 and k=10, its rounds,
    chunks and rows refined and its ``dtw_band`` launches logged, held
    against a brute-force ``dtw_band`` over every row with a stable top-k
-   (dists bit-identical, positions equal); ``dtw_band`` bit for bit equal
-   to its plain version ``dtw_band_ref`` on the card at 1 query x 4,096
-   rows and at a refinement round (16 x 256); host-loop and CUDA-graph
-   times at those shapes and at the brute force's (1 x every row);
+   (dists bit-identical, positions equal); every ``dtw_band`` kernel the
+   run reaches bit for bit equal to its plain version ``dtw_band_ref`` on
+   the card (``kernels/dtw.py::_plan``'s choice at 1 query x 4,096 rows,
+   at a refinement round, 16 x 256, and at a late round, 4 x 256; v2 with
+   one thread a pair, the brute force's; v1 at band 40); host-loop and
+   CUDA-graph times at those shapes, v1's at the round and the brute
+   force's (1 x every row), each row naming its kernel (``variant``,
+   ``lanes``); each ``dtw_knn`` call's launches x the round's device time
+   against its wall time, the rest being the host's share;
 8. the store's mutation path on that store: two journal segments of 1/32
    of the base each (2 x 131,072 rows at the full size) appended in chunks
    of 65,536 and 8,192 rows, each append invalidating the store's cached
@@ -192,8 +197,9 @@ Phases (any failure ends the run with a non-zero exit):
    on the card within 1e-6.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
-``device_ms``, a CUDA graph's time; the ``dtw_band`` row from phase 7b at
-1 x 4,096, its other shapes in the summary; ``rg_lru_scan`` at the prefill
+``device_ms``, a CUDA graph's time; two ``dtw_band`` rows from phase 7b,
+the round (16 x 256) and 1 x 4,096, each with its ``variant`` and
+``lanes``, its other shapes in the summary; ``rg_lru_scan`` at the prefill
 and decode shapes, each row with the run's launches; ``wkv6_bwd`` and
 ``rg_lru_scan_bwd`` at the training shapes, with the training phases'
 launches); then the card's ``nvidia-smi`` name
@@ -218,6 +224,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+# The DTW cell has no FMA, so its rows are bound at the non-FMA issue rate:
+# NVIDIA's CUDA C++ Programming Guide ("Arithmetic Instructions", results a
+# clock an SM, compute capability 9.0): 128 for 32-bit float add and multiply
+# (FADD, FMUL), 64 for compare, minimum, maximum (FMNMX); four schedulers
+# issue at most 4 x 32 = 128 a clock an SM. A cell's 3 FADD/FMUL and 2 FMNMX
+# then take max(3 / 128, 2 / 64, 5 / 128) = 5 / 128 clocks an SM.
+SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9   # H100 SXM: SMs, boost clock
+FP32_ADD_MUL_PER_S = SM_COUNT * 128 * SM_CLOCK_HZ   # 33.45e12 (half of FP32_FLOPS)
+FP32_MINMAX_PER_S = SM_COUNT * 64 * SM_CLOCK_HZ     # 16.73e12
+DTW_OPS_PER_S = 5 / max(3 / FP32_ADD_MUL_PER_S, 2 / FP32_MINMAX_PER_S,
+                        5 / FP32_ADD_MUL_PER_S)     # 33.45e12 of a cell's 5 operations
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=5e-2, atol=2.5e-1)}
 
@@ -1263,15 +1280,25 @@ DTW_QUERIES = 16                # phase 4's first queries
 DTW_BAND = 13                   # a 5% warping window of n = 256 (UCR-Suite's convention)
 DTW_KS = (1, 10)
 DTW_BITS_ROWS = 4096            # the kernel-vs-plain shape: 1 query x 4,096 rows
+DTW_LATE_QUERIES = 4            # a late round: the queries still refining
+DTW_WIDE_BAND = 40              # a band past v2's instances: v1's kernel
 
 
 def dtw_cost(pairs: int, n: int, band: int) -> tuple[int, int]:
     """(bytes, operations) of ``pairs`` banded-DTW pairs of length ``n``:
-    each candidate row read once and each distance written once, and ~5
-    FP32 operations (subtract, multiply, two minima, add) a band cell."""
+    each candidate row read once and each distance written once, and 5
+    FP32 operations (subtract, multiply, two minima, add; no FMA) a band
+    cell, bound at :data:`DTW_OPS_PER_S` (a row's ``ops_per_s``)."""
     band = min(band, n - 1)
     cells = n * (2 * band + 1) - band * (band + 1)
     return pairs * (n + 1) * 4, 5 * pairs * cells
+
+
+def dtw_latency_ms(n: int, cycles: int = 8) -> float:
+    """The least time of one pair whatever the parallelism: its 2n - 1
+    anti-diagonals in series, one dependent FMNMX and FADD each (~4 cycles
+    apiece on Hopper, an estimate), at :data:`SM_CLOCK_HZ`."""
+    return 1e3 * (2 * n - 1) * cycles / SM_CLOCK_HZ
 
 
 def words32(x):
@@ -1284,10 +1311,14 @@ def phase_dtw(queries, local):
     journal): ``dtw_knn`` over the first ``DTW_QUERIES`` queries at band
     ``DTW_BAND``, k = 1 and 10, held against a brute-force ``dtw_band`` over
     every row with a stable top-k (dists bit-identical, positions equal);
-    ``dtw_band`` held bit for bit to ``dtw_band_ref`` on the card at 1 query
-    x 4,096 rows; both times at that shape, at the brute force's (1 query x
-    every row) and at a refinement round's (the queries x one chunk).
-    Returns (the kernels line's row, the other shapes' rows, summary)."""
+    ``dtw_band`` held bit for bit to ``dtw_band_ref`` on the card through
+    every kernel the run reaches (``kernels/dtw.py::_plan``'s choice at 1
+    query x 4,096 rows, a refinement round and a late round of 4 queries,
+    v2 with one thread a pair, and v1 at band ``DTW_WIDE_BAND``); both times
+    at those shapes, at the brute force's (1 query x every row), and v1's at
+    the round; each ``dtw_knn`` call's launches x the round's device time
+    against its wall time (the rest is the host's). Returns (the kernels
+    line's rows: the round and 1 x 4,096; the other shapes' rows; summary)."""
     import torch
     from repro_torch.core.dtw import dtw_knn
     from repro_torch.kernels import dtw as kdtw, ref
@@ -1339,50 +1370,74 @@ def phase_dtw(queries, local):
         f"all {num} rows (stable top-k, {out['brute_force_s']:.2f}s), positions equal")
     del vals, idx
 
-    # the kernel against its plain version, bit for bit, then its times
-    a, cands = q[0], rows[:DTW_BITS_ROWS]
-    got = kdtw.dtw_band(a, cands, DTW_BAND)
-    want = ref.dtw_band_ref(a, cands, DTW_BAND)
-    bad = int((words32(got) != words32(want)).sum())
-    check(bad == 0, f"[dtw] dtw_band: {bad} of {DTW_BITS_ROWS} distances differ from "
-                    f"dtw_band_ref on the card")
-    err = float((got - want).abs().max())
+    # every kernel the run reaches against the plain version, bit for bit
     qn = q.shape[0]
+    a, cands = q[0], rows[:DTW_BITS_ROWS]
     rnd = rows[:qn * chunk].reshape(qn, chunk, n)
-    bad = int((words32(kdtw.dtw_band(q, rnd, DTW_BAND))
-               != words32(ref.dtw_band_ref(q, rnd, DTW_BAND))).sum())
-    check(bad == 0, f"[dtw] dtw_band: {bad} distances of a {qn} x {chunk} round differ "
-                    f"from dtw_band_ref on the card")
-    log(f"[dtw] dtw_band equals dtw_band_ref bit for bit at 1 x {DTW_BITS_ROWS} x {n} and "
-        f"at a refinement round's {qn} x {chunk} x {n}, band {DTW_BAND}")
+    late = DTW_LATE_QUERIES
+    cases = [("1 x 4096", a, cands, DTW_BAND, kdtw._plan(DTW_BITS_ROWS, n, DTW_BAND)),
+             ("1 x 4096", a, cands, DTW_BAND, kdtw._plan(num, n, DTW_BAND)),
+             ("round", q, rnd, DTW_BAND, kdtw._plan(qn * chunk, n, DTW_BAND)),
+             ("late round", q[:late], rnd[:late], DTW_BAND,
+              kdtw._plan(late * chunk, n, DTW_BAND)),
+             ("1 x 4096", a, cands, DTW_WIDE_BAND, kdtw._plan(DTW_BITS_ROWS, n, DTW_WIDE_BAND))]
+    check(cases[1][4] == ("v2", 1) and cases[-1][4] == ("v1", 1),
+          f"[dtw] the brute force and band {DTW_WIDE_BAND} plan {cases[1][4]}, {cases[-1][4]}")
+    err = 0.0
+    for label, qa, ca, band, plan in cases:
+        got = kdtw.dtw_band_as(qa, ca, band, *plan)
+        want = ref.dtw_band_ref(qa, ca, band)
+        bad = int((words32(got) != words32(want)).sum())
+        check(bad == 0, f"[dtw] dtw_band {plan} at {label} x {n}, band {band}: {bad} of "
+                        f"{want.numel()} distances differ from dtw_band_ref on the card")
+        err = max(err, float((got - want).abs().max()))
+    log("[dtw] dtw_band equals dtw_band_ref bit for bit through "
+        + "; ".join(f"{plan[0]} with {plan[1]} lanes at {label}, band {band}"
+                    for label, _, _, band, plan in cases))
     shapes = []
-    # (query, candidates, shape, host-loop and graph reps, plain reps,
-    # launches at the shape in dtw_knn): the bits' shape, a refinement
-    # round's (every query a chunk; rounds with fewer queries left launch
-    # smaller) and the brute force's (a query against every row; its plain
-    # version is not timed)
-    for qa, ca, shape, reps, plain_reps, per_run in (
-            (a, cands, [1, DTW_BITS_ROWS, n], (50, 100), 3, 0),
-            (q, rnd, [qn, chunk, n], (50, 100), 3, launches),
-            (a, rows, [1, num, n], (3, 3), 0, 0)):
-        run = lambda qa=qa, ca=ca: kdtw.dtw_band(qa, ca, DTW_BAND)
-        nbytes, ops = dtw_cost(shape[0] * shape[1], n, DTW_BAND)
+    # (query, candidates, shape, band, plan, host-loop and graph reps, plain
+    # reps, launches at the shape in dtw_knn): the round (the main path's
+    # shape: every query a chunk; rounds with fewer queries left are
+    # smaller), the bits' shape, a late round, v1 at the round, the brute
+    # force (its plain version is not timed) and v1 at its band
+    for qa, ca, shape, band, plan, reps, plain_reps, per_run in (
+            (q, rnd, [qn, chunk, n], DTW_BAND, cases[2][4], (50, 100), 3, launches),
+            (a, cands, [1, DTW_BITS_ROWS, n], DTW_BAND, cases[0][4], (50, 100), 3, 0),
+            (q[:late], rnd[:late], [late, chunk, n], DTW_BAND, cases[3][4], (50, 100), 3, 0),
+            (q, rnd, [qn, chunk, n], DTW_BAND, ("v1", 1), (50, 100), 0, 0),
+            (a, rows, [1, num, n], DTW_BAND, ("v2", 1), (3, 3), 0, 0),
+            (a, cands, [1, DTW_BITS_ROWS, n], DTW_WIDE_BAND, ("v1", 1), (10, 10), 0, 0)):
+        run = lambda qa=qa, ca=ca, band=band, plan=plan: kdtw.dtw_band_as(qa, ca, band, *plan)
+        nbytes, ops = dtw_cost(shape[0] * shape[1], n, band)
         r = dict(name="dtw_band", route="cuda", source="src/repro_torch/kernels/csrc/dtw.cu",
                  replaces="src/repro/core/dtw.py:53 (dtw_distance; reference code "
                           "outside Pallas, no TPU kernel)",
-                 shape=shape, launches=launches, max_abs_err=err,
-                 ms=time_ms(run, reps=reps[0], warmup=2),
+                 shape=shape, band=band, variant=plan[0], lanes=plan[1], launches=launches,
+                 max_abs_err=err, ms=time_ms(run, reps=reps[0], warmup=2),
                  device_ms=device_ms(run, reps=reps[1]),
-                 plain_ms=(time_ms(lambda qa=qa, ca=ca: ref.dtw_band_ref(qa, ca, DTW_BAND),
-                                   reps=plain_reps) if plain_reps else None),
-                 library_ms=None, bytes=nbytes, ops=ops, launches_per_run=per_run)
+                 plain_ms=(time_ms(lambda qa=qa, ca=ca, band=band:
+                                   ref.dtw_band_ref(qa, ca, band), reps=plain_reps)
+                           if plain_reps else None),
+                 library_ms=None, bytes=nbytes, ops=ops, ops_per_s=DTW_OPS_PER_S,
+                 launches_per_run=per_run)
         _bound(r)
         log_timing(r)
+        log(f"[dtw] {shape}, band {band}: {plan[0]}, {plan[1]} lanes")
         shapes.append(r)
-    row = shapes.pop(0)
-    out["shapes"] = [{k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms")}
-                     for r in [row] + shapes]
-    return row, shapes, out
+    round_ms = shapes[0]["device_ms"]
+    floor = dtw_latency_ms(n)
+    log(f"[dtw] the round's bound {shapes[0]['bound_ms']:.4f} ms, its latency floor "
+        f"{floor:.4f} ms (2n - 1 = {2 * n - 1} dependent steps of ~8 cycles)")
+    for k, call in out["calls"].items():
+        call["kernel_ms"] = call["launches"] * round_ms
+        call["host_ms"] = 1e3 * call["s"] - call["kernel_ms"]
+        log(f"[dtw] dtw_knn {k}: {call['launches']} launches x {round_ms:.4f} ms (the "
+            f"round's device time) = {call['kernel_ms']:.1f} ms of {1e3 * call['s']:.1f} ms; "
+            f"the host's share {call['host_ms']:.1f} ms")
+    out["shapes"] = [{k: r[k] for k in ("shape", "band", "variant", "lanes", "ms", "device_ms",
+                                        "plain_ms", "bound_ms")} for r in shapes]
+    out["latency_floor_ms"] = floor
+    return shapes[:2], shapes[2:], out
 
 
 def journal_rows(num: int) -> int:
@@ -1757,7 +1812,7 @@ def phase_disk_kernels(queries, blocks, launches):
 
 def _bound(r: dict) -> None:
     t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = r["ops"] / FP32_FLOPS * 1e3
+    t_ops = r["ops"] / r.get("ops_per_s", FP32_FLOPS) * 1e3
     r["bound_ms"] = max(t_bytes, t_ops)
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
@@ -3548,7 +3603,7 @@ def main(argv=None) -> int:
                                      summary)
             summary["shards"] = timed("shards", phase_shards, data, queries, local, answers,
                                       hx, summary)
-            dtw_row, dtw_shapes, summary["dtw"] = timed("dtw", phase_dtw, queries, local)
+            dtw_rows, dtw_shapes, summary["dtw"] = timed("dtw", phase_dtw, queries, local)
             summary["store"] = timed("store", phase_store, hx, data, queries, summary)
         finally:
             hx.close()
@@ -3570,7 +3625,7 @@ def main(argv=None) -> int:
                          wave_launches, shard_lb)
     disk_row, ooc_min_row, disk_shapes = timed("disk_kernels", phase_disk_kernels, queries,
                                                blocks, disk_launches)
-    rows += [disk_row, ooc_min_row, dtw_row]
+    rows += [disk_row, ooc_min_row, *dtw_rows]
     shapes += disk_shapes + dtw_shapes
     del blocks
     # launches per run of the kernels at each timed shape (query rows,
@@ -3684,7 +3739,9 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "bytes", "ops",
             "device_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
+                                   **{k: r[k] for k in ("variant", "lanes") if k in r}}
+                                  for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -130,6 +130,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "dtw":
         lib.dtw_band_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
         lib.dtw_band_f32.restype = _I
+        lib.dtw_band_v2_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.dtw_band_v2_f32.restype = _I
     elif name == "rg_lru":
         lib.rg_lru_scan_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
         lib.rg_lru_scan_f32.restype = _I

@@ -229,3 +229,181 @@ def test_dtw_knn_default_config_and_padding_error(dtw_pair):
         TD.dtw_knn(tidx.layout, t(q), k=1, band=2, cfg=SearchConfig(k=1, chunk=80))
     d, p = TD.dtw_knn(tidx.layout, t(q[:0]), k=2, band=2, cfg=SearchConfig(k=2, chunk=64))
     assert d.shape == (0, 2) and p.shape == (0, 2) and p.dtype == torch.int32
+
+
+# ---- the v2 kernels' plan and schedules (csrc/dtw.cu) ----
+
+def test_plan_takes_v1_exactly_past_the_largest_instance():
+    for n in (1, 9, 33, 34, 256):
+        for band in range(0, 45):
+            variant, lanes = kdtw._plan(4096, n, band)
+            wide = min(band, n - 1) > kdtw.ROW_BANDS[-1]
+            assert (variant == "v1") == wide, (n, band)
+            assert lanes == 1 if wide else lanes in (1, *kdtw.LANES)
+    assert kdtw._plan(16 * 256, 256, 255) == ("v1", 1)
+    assert kdtw._plan(16 * 256, 256, 32) == ("v2", 1)           # past the lanes' 31
+
+
+def test_plan_lanes_follow_the_pair_count():
+    assert kdtw._plan(1 << 22, 256, 13) == ("v2", 1)            # the brute force
+    assert kdtw._plan(kdtw.LANE_PAIRS, 256, 13) == ("v2", 1)
+    assert kdtw._plan(kdtw.LANE_PAIRS - 1, 256, 13) == ("v2", 16)
+    assert kdtw._plan(16 * 256, 256, 13) == ("v2", 16)          # a dtw_knn round
+    assert kdtw._plan(4 * 256, 256, 13) == ("v2", 32)           # a late round
+    assert kdtw._plan(kdtw.WIDE_LANE_PAIRS, 256, 13) == ("v2", 32)
+    assert kdtw._plan(kdtw.WIDE_LANE_PAIRS + 1, 256, 13) == ("v2", 16)
+    assert kdtw._plan(1, 256, 1) == ("v2", 32)
+    assert kdtw._plan(4096, 256, 0) == ("v2", 1)                 # a one-cell band
+    assert kdtw._plan(4096, 1, 13) == ("v2", 1)                  # clamped to band 0
+    assert kdtw._plan(16 * 256, 256, 31) == ("v2", 16)
+    for pairs in range(1, kdtw.LANE_PAIRS, 997):
+        assert kdtw._plan(pairs, 256, 13)[1] in (16, 32)
+
+
+def _cells(band, lanes):
+    """Cells a thread of the instance ``dtw_band_v2_f32`` launches."""
+    w = 2 * band + 1
+    if lanes == 1:
+        return 2 * next(b for b in kdtw.ROW_BANDS if band <= b) + 1
+    return (32 if w <= 32 else 64) // lanes
+
+
+def emulate_rows(q, c, band, S):
+    """``dtw_rows_kernel<S>`` step for step, every pair at once (float32
+    numpy): the band right-aligned in S cells, each row entered at
+    ``start`` with ``left`` read from the cell before (never computed left
+    of ``start``), the candidate window shifted by the computed cells, the
+    last band rows masked past column n - 1."""
+    f32 = np.float32
+    num, n = c.shape
+    w = 2 * band + 1
+    base = S - w
+    D = np.full((num, S), BIG, f32)
+    D[:, base + band] = 0.0
+    cw = np.zeros((num, S), f32)
+    for s in range(S):
+        j = max(0, s - base - band)
+        cw[:, s] = c[:, j] if j < n else 0.0
+    a = q[0]
+    for i in range(n):
+        jn = i + 1 + band
+        nxt = c[:, jn] if jn < n else np.zeros(num, f32)
+        an = q[i + 1] if i + 1 < n else f32(0.0)
+        start = base + max(0, band - i)
+        mask, hi = i + band >= n, base + n - 1 - i + band
+        for s in range(start, S):
+            up = D[:, s + 1] if s + 1 < S else np.full(num, BIG, f32)
+            left = D[:, s - 1] if s > 0 else np.full(num, BIG, f32)
+            d = cw[:, s] - a
+            cur = d * d + np.minimum(np.minimum(D[:, s], up), left)
+            if mask and s > hi:
+                cur = np.full(num, BIG, f32)
+            D[:, s] = cur
+            cw[:, s] = cw[:, s + 1] if s + 1 < S else nxt
+        a = an
+        outside = [s for s in range(S) if s < base or not 0 <= i - band + s - base < n]
+        assert (D[:, outside] == BIG).all(), f"row {i}: a cell outside holds a value"
+    return D[:, base + band].copy()
+
+
+def emulate_lanes(q, c, band, S, G):
+    """``dtw_lanes_kernel<S, G>`` step for step: every lane of every group in
+    lockstep (float32 numpy, vectorised over groups). Lane g holds band
+    cells [g S, g S + S) of two pairs, 2 grp + (g & 1) on phase 0 and the
+    other on phase 1; at step k it takes row k - g // 2 - (g & 1) of the
+    first and row k - g // 2 of the second; left and up come from the
+    neighbours' cells published on the phase before."""
+    f32 = np.float32
+    num, n = c.shape
+    w = 2 * band + 1
+    groups = (num + 1) // 2
+    grp = np.arange(groups)
+    pairs = [[np.minimum(2 * grp + (g & 1), num - 1), np.minimum(2 * grp + 1 - (g & 1), num - 1)]
+             for g in range(G)]
+    init = np.array([0.0 if g * S + s == band else BIG for g in range(G) for s in range(S)],
+                    f32).reshape(G, S)
+    D = [np.broadcast_to(init[None, :, :], (groups, G, S)).copy() for _ in range(2)]
+    cn = [np.zeros((groups, G, S), f32) for _ in range(2)]
+    an = [np.zeros((groups, G), f32) for _ in range(2)]
+    pub_first, pub_last = D[0][:, :, 0].copy(), D[0][:, :, S - 1].copy()
+
+    def phase(ph, rows):
+        nonlocal pub_first, pub_last
+        big = np.full(groups, BIG, f32)
+        left_in = [big if g == 0 else pub_last[:, g - 1] for g in range(G)]
+        up_in = [big if g == G - 1 else pub_first[:, g + 1] for g in range(G)]
+        for g in range(G):
+            i, o0, dd = rows[g], g * S, D[ph][:, g]
+            crow = c[pairs[g][ph]]
+            j0 = i - band + o0
+            if 0 <= i < n:
+                left = left_in[g]
+                for s in range(S):
+                    j = j0 + s
+                    live = o0 + s < w and 0 <= j < n
+                    up = dd[:, s + 1] if s + 1 < S else up_in[g]
+                    d = cn[ph][:, g, s] - an[ph][:, g]
+                    cur = d * d + np.minimum(np.minimum(dd[:, s], up), left)
+                    dd[:, s] = cur if live else BIG
+                    left = dd[:, s].copy()
+                    assert live or (dd[:, s] == BIG).all()
+            if 0 <= i + 1 < n:
+                an[ph][:, g] = q[i + 1]
+                for s in range(S):
+                    j = j0 + 1 + s
+                    ok = o0 + s < w and 0 <= j < n
+                    cn[ph][:, g, s] = crow[:, j] if ok else 0.0
+        pub_first, pub_last = D[ph][:, :, 0].copy(), D[ph][:, :, S - 1].copy()
+
+    h = [g >> 1 for g in range(G)]
+    phase(0, [-h[g] - (g & 1) - 1 for g in range(G)])
+    phase(1, [-h[g] - 1 for g in range(G)])
+    pub_first, pub_last = D[0][:, :, 0].copy(), D[0][:, :, S - 1].copy()
+    for k in range(n + G // 2):
+        phase(0, [k - h[g] - (g & 1) for g in range(G)])
+        phase(1, [k - h[g] for g in range(G)])
+    out = np.empty(num, f32)
+    g = band // S
+    for ph in range(2):
+        p = 2 * grp + ((g & 1) if ph == 0 else 1 - (g & 1))
+        ok = p < num
+        out[p[ok]] = D[ph][ok, g, band - g * S]
+    return out
+
+
+@pytest.mark.parametrize("n,band,lanes", [
+    (1, 0, 1), (1, 0, 32), (12, 0, 1), (12, 0, 16), (17, 5, 1), (17, 5, 32),
+    (37, 13, 1), (37, 13, 16), (37, 13, 32), (9, 20, 1), (9, 20, 16), (20, 8, 1),
+    (20, 9, 1), (40, 16, 1), (40, 17, 1), (40, 32, 1), (24, 15, 16), (24, 15, 32),
+    (24, 16, 16), (24, 16, 32), (33, 31, 16), (33, 31, 32), (5, 13, 16)])
+def test_v2_schedule_emulation_equals_plain_bitwise(rng, n, band, lanes):
+    """Both v2 kernels' schedules (which lane owns which band cells, the
+    step each cell is written at, where it reads diag, up and left, the
+    candidate window), emulated in float32 numpy, equal ``dtw_band_ref``
+    bit for bit, every cell outside the band or the matrix exactly 3.0e38
+    after each row: band 0, bands past n - 1 (clamped as the kernel does), n <
+    W, n not a multiple of anything, each instance's edge band, each lane
+    count, an odd pair count (a group's second pair past the end)."""
+    q = rng.normal(size=n).astype(np.float32)
+    c = (rng.normal(size=(5, n)) * 2).astype(np.float32)
+    b = min(band, n - 1)
+    S = _cells(b, lanes)
+    got = (emulate_rows(q, c, b, S) if lanes == 1
+           else emulate_lanes(q, c, b, S, lanes))
+    want = tref.dtw_band_ref(t(q), t(c), band).numpy()
+    np.testing.assert_array_equal(words(got), words(want))
+
+
+def test_plan_keeps_lane_blocks_in_shared_memory():
+    """A lane block holds its 256 / lanes candidate rows and the query row
+    in shared memory: long series take the other lane count, or one thread
+    a pair."""
+    assert kdtw._lane_smem(256, 32) == 4 * ((256 + 160) * 8 + 256 + 64)
+    for n in (256, 2000, 4000, 8000):
+        for pairs in (1024, 4096):
+            variant, lanes = kdtw._plan(pairs, n, 13)
+            assert variant == "v2"
+            assert lanes == 1 or kdtw._lane_smem(n, lanes) <= kdtw._SMEM_MAX
+    assert kdtw._plan(4096, 4000, 13) == ("v2", 32)             # 16 lanes do not fit
+    assert kdtw._plan(4096, 8000, 13) == ("v2", 1)              # neither does
+    assert all(kdtw._lane_smem(256, g) <= kdtw._SMEM_MAX for g in kdtw.LANES)

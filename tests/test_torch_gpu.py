@@ -37,8 +37,9 @@ a rounded add, a step), on the card and on the CPU, and so is
 gradients within 1e-5 of each tensor's largest magnitude of
 ``wkv6_bwd_ref`` (sums in another order), bf16 ones within 8e-3 of it (a
 bf16 step, 2^-8, rounding sums taken in another order), and two launches
-bit-equal (no atomics). ``dtw_band``: bit for bit ``dtw_band_ref`` (each DP cell one rounded add of
-an exact minimum), so ``dtw_knn`` on the card equals the CPU's bit for bit.
+bit-equal (no atomics). ``dtw_band``: every kernel (v1, and v2 by one thread or by lanes a pair)
+bit for bit ``dtw_band_ref`` (each DP cell one rounded add of an exact minimum), so ``dtw_knn``
+on the card equals the CPU's bit for bit.
 Transformers, MoE and Griffin (float32 smoke configs): logits, aux and
 metrics within 1e-4, each gradient within 1e-4 of its tensor's largest
 magnitude, and AdamW on the same gradients within 1e-6.
@@ -799,21 +800,39 @@ def test_rwkv6_smoke_on_the_card_equals_cpu(cuda):
 
 
 @pytest.mark.parametrize("n", [64, 256])
-@pytest.mark.parametrize("band", [0, 13, 255])
+@pytest.mark.parametrize("band", [0, 8, 9, 13, 15, 16, 17, 31, 32, 33, 255])
 def test_dtw_band_kernel_equals_plain_bitwise(cuda, n, band):
-    """The banded-DTW kernel equals ``dtw_band_ref`` in every bit: a query
-    against a ragged number of candidates (a block's edge), and queries
-    against their own candidates (a refinement round); band 255 covers the
-    whole matrix at both lengths (clamped to n - 1) and takes the kernel's
-    opt-in shared memory at n = 256."""
+    """Every banded-DTW kernel that takes the band equals ``dtw_band_ref``
+    in every bit: v1, v2 with one thread a pair (instances of 17, 33 and 65
+    cells: bands up to 8, 16, 32) and v2 with each lane count (64 band
+    cells a pair at most: bands up to 31), at each instance's edge bands;
+    a query against a ragged number of candidates (a block's edge), 1 and
+    33 candidates (a group's and a warp's edge) and queries against their
+    own candidates (a refinement round). Band 255 covers the whole matrix
+    at both lengths (clamped to n - 1: v1, whose opt-in shared memory it
+    takes at n = 256; at n = 64, v2). Some candidates hold +-1e20 and
+    +-3e19 (costs overflow to inf, sums pass 3.0e38), where a cell left at
+    inf instead of 3.0e38 would show. ``dtw_band`` itself (``_plan``'s
+    choice) is one launch and equals the CPU's result."""
     data = torch.from_numpy(walks(21, 1000, n)).to(cuda)
+    data[::7, 5] = 1e20
+    data[::11, :3] = -3e19
+    data[::13, -2:] = 1.3e19
     q = torch.from_numpy(walks(22, 3, n)).to(cuda)
-    for qa, ca in ((q[0], data), (q, data[:3 * 257].reshape(3, 257, n))):
+    b = min(band, n - 1)
+    plans = [("v1", 1)] + ([("v2", 1)] if b <= kdtw.ROW_BANDS[-1] else []) \
+        + ([("v2", g) for g in kdtw.LANES] if b <= kdtw.LANE_MAX_BAND else [])
+    for qa, ca in ((q[0], data), (q[0], data[:1]), (q[0], data[:33]),
+                   (q, data[:3 * 257].reshape(3, 257, n))):
+        want = tref.dtw_band_ref(qa, ca, band).view(torch.int32)
+        for plan in plans:
+            before = kdtw.dtw_band.launches
+            got = kdtw.dtw_band_as(qa, ca, band, *plan)
+            assert kdtw.dtw_band.launches == before + 1
+            assert torch.equal(got.view(torch.int32), want), plan
         before = kdtw.dtw_band.launches
-        got = kdtw.dtw_band(qa, ca, band)
+        assert torch.equal(kdtw.dtw_band(qa, ca, band).view(torch.int32), want)
         assert kdtw.dtw_band.launches == before + 1
-        want = tref.dtw_band_ref(qa, ca, band)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(kdtw.dtw_band(q[0], data, band).cpu(),
                        tref.dtw_band_ref(q[0].cpu(), data.cpu(), band))
 

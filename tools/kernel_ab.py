@@ -4,6 +4,7 @@ checkout's on one CUDA card.
 
     python3 tools/kernel_ab.py --kernel ed|lb_sax|wkv6 --baseline OLD.cu \
         [--trial LABEL=FLAGS ...] [--out FILE]
+    python3 tools/kernel_ab.py --kernel dtw [--out FILE]
 
 ``--baseline`` is an older ``csrc/<kernel>.cu`` with the same C entry
 points, for example the parent commit's (``git show
@@ -75,6 +76,24 @@ every bits check and timing.
    as for ``ed``. The trial flags of ``csrc/wkv6.cu``: ``-DWKV_CHUNK=``
    (steps a chunk), ``-DWKV_COLS=`` (columns a thread),
    ``-DWKV_STEP_UNROLL=``.
+
+``--kernel dtw`` (``dtw_band``; no ``--baseline``: v1 stays in the
+checkout's ``csrc/dtw.cu`` for wide bands, so both are launched by
+``kernels/dtw.py::dtw_band_as``):
+
+1. Bits: every kernel (v1; v2 with one thread a pair; v2 with each lane
+   count of ``LANES`` where the band allows) equals ``dtw_band_ref`` as
+   int32 words at 1 x 4,096, 16 x 256 (a ``dtw_knn`` round) and 4 x 256 (a
+   late round), n = 256, bands 0, 13, 31, 32 and 40, plus ragged pair
+   counts (1, 31, 33, 63, 65, 129 rows: a warp's and a group's edge); at
+   1 x 4,194,304 (the brute force) each kernel equals v1 and the first
+   4,096 rows equal ``dtw_band_ref``.
+2. Times at those four shapes and bands, every kernel in turns (forward,
+   then back), by both yardsticks as for ``ed``, the bound as
+   ``chip_smoke.py``'s (5 operations a cell at the non-FMA issue rate);
+   and at 1 query x 8,192 .. 131,072 rows, band 13, v2's one thread a pair
+   against its lanes: where the two meet sets ``kernels/dtw.py``'s
+   ``LANE_PAIRS``. Each row names the kernel ``_plan`` picks there.
 
 Prints one line per timed case and a JSON line; ``--out`` also writes the
 JSON there. Exits 1 if any bit differs (2 without a card); a failed ED
@@ -445,17 +464,134 @@ def wkv_timings(builds: dict) -> list:
     return rows
 
 
+DTW_N = 256
+DTW_SHAPES = [(1, 4096), (16, 256), (4, 256), (1, 1 << 22)]
+DTW_BANDS = (0, 13, 31, 32, 40)
+DTW_SWEEP = (8192, 16384, 32768, 65536, 131072)
+
+
+def dtw_plans(band: int, n: int) -> list:
+    """Every kernel that takes ``band`` at length ``n``."""
+    from repro_torch.kernels import dtw as kdtw
+    b = min(band, n - 1)
+    plans = [("v1", 1)]
+    if b <= kdtw.ROW_BANDS[-1]:
+        plans.append(("v2", 1))
+    if b <= kdtw.LANE_MAX_BAND:
+        plans += [("v2", g) for g in kdtw.LANES]
+    return plans
+
+
+def dtw_operands(qn: int, num: int, seed: int):
+    """qn queries and qn x num candidate rows of z-normalised walks (the
+    index's rows), as (Q, n) x (Q, B, n)."""
+    from repro_torch.data.synthetic import random_walks
+    q = random_walks(qn, DTW_N, seed=seed, device="cuda")
+    c = random_walks(qn * num, DTW_N, seed=seed + 1, device="cuda")
+    return q, c.reshape(qn, num, DTW_N)
+
+
+def check_dtw_bits() -> list:
+    """Every kernel against ``dtw_band_ref`` (and, at the brute force's
+    shape, against v1) as int32 words; returns the differing cases."""
+    import torch
+    from repro_torch.kernels import dtw as kdtw, ref
+
+    def words(x):
+        return x.contiguous().view(torch.int32)
+
+    bad, count = [], 0
+    cases = [(qn, num) for qn, num in DTW_SHAPES if qn * num <= 4096]
+    cases += [(1, num) for num in (1, 31, 33, 63, 65, 129)] + [(3, 67)]
+    for i, (qn, num) in enumerate(cases):
+        q, c = dtw_operands(qn, num, 200 + 2 * i)
+        for band in DTW_BANDS:
+            want = words(ref.dtw_band_ref(q, c, band))
+            for plan in dtw_plans(band, DTW_N):
+                count += 1
+                if not torch.equal(words(kdtw.dtw_band_as(q, c, band, *plan)), want):
+                    bad.append(f"{plan} {qn}x{num} band {band}")
+    qn, num = DTW_SHAPES[-1]
+    q, c = dtw_operands(qn, num, 300)
+    for band in DTW_BANDS:
+        v1 = words(kdtw.dtw_band_as(q, c, band, "v1"))
+        want = words(ref.dtw_band_ref(q, c[:, :4096], band))
+        for plan in dtw_plans(band, DTW_N):
+            got = words(kdtw.dtw_band_as(q, c, band, *plan))
+            count += 2
+            if not torch.equal(got, v1):
+                bad.append(f"{plan} {qn}x{num} band {band} vs v1")
+            if not torch.equal(got[:, :4096], want):
+                bad.append(f"{plan} {qn}x{num}[:4096] band {band}")
+    print(f"[bits] {count} comparisons: {len(bad)} differ {bad[:10] if bad else ''}",
+          flush=True)
+    return bad
+
+
+def dtw_in_turns(shape, band: int, plans: list, fn_of, reps: int) -> dict:
+    """Each plan's ``fn_of(plan)`` timed in turns, forward then back, by the
+    host loop and a CUDA graph; prints and returns the row."""
+    from repro_torch.kernels import dtw as kdtw
+    runs: dict = {f"{v}/{g}": [] for v, g in plans}
+    for plan in [*plans, *reversed(plans)]:
+        fn = fn_of(plan)
+        runs[f"{plan[0]}/{plan[1]}"].append((cs.time_ms(fn, reps, warmup=2),
+                                             cs.device_ms(fn, reps)))
+    nbytes, ops = cs.dtw_cost(shape[0] * shape[1], shape[2], band)
+    bound = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.DTW_OPS_PER_S)
+    chosen = kdtw._plan(shape[0] * shape[1], shape[2], band)
+    row = {"kernel": "dtw_band", "shape": list(shape), "band": band, "reps": reps,
+           "bound_ms": bound, "plan": f"{chosen[0]}/{chosen[1]}", "runs": runs,
+           "ms": {k: sum(e for e, _ in v) / 2 for k, v in runs.items()},
+           "device_ms": {k: sum(d for _, d in v) / 2 for k, v in runs.items()}}
+    best = min(row["device_ms"], key=row["device_ms"].get)
+    print(f"[time] dtw_band {'x'.join(map(str, shape))} band {band}: bound {bound:.4f} ms; "
+          f"_plan {row['plan']}, fastest {best}; host loop "
+          + "; ".join(f"{k} {v:.4f}" for k, v in row["ms"].items()) + "; device "
+          + "; ".join(f"{k} {v:.4f} ({bound / v:.1%})" for k, v in row["device_ms"].items()),
+          flush=True)
+    return row
+
+
+def dtw_timings() -> list:
+    from repro_torch.kernels import dtw as kdtw
+    rows = []
+    for i, (qn, num) in enumerate(DTW_SHAPES):
+        q, c = dtw_operands(qn, num, 400 + 2 * i)
+        big = qn * num > 1 << 16
+        for band in DTW_BANDS:
+            plans = dtw_plans(band, DTW_N)
+            if big:       # lanes a pair at full occupancy: their cost, once each
+                plans = [p for p in plans if p[1] in (1, kdtw.LANES[0], kdtw.LANES[-1])]
+            rows.append(dtw_in_turns(
+                (qn, num, DTW_N), band, plans,
+                lambda plan, q=q, c=c, band=band: (
+                    lambda: kdtw.dtw_band_as(q, c, band, *plan)),
+                2 if big else 50))
+        del q, c
+    for num in DTW_SWEEP:
+        q, c = dtw_operands(1, num, 500)
+        rows.append(dtw_in_turns(
+            (1, num, DTW_N), 13, [("v2", 1), *[("v2", g) for g in kdtw.LANES if g >= 4]],
+            lambda plan, q=q, c=c: (lambda: kdtw.dtw_band_as(q, c, 13, *plan)), 20))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", required=True, choices=("ed", "lb_sax", "wkv6"),
+    ap.add_argument("--kernel", required=True, choices=("ed", "lb_sax", "wkv6", "dtw"),
                     help="which source under src/repro_torch/kernels/csrc to compare")
-    ap.add_argument("--baseline", required=True,
-                    help="an older <kernel>.cu with the same C entry points")
+    ap.add_argument("--baseline", default=None,
+                    help="an older <kernel>.cu with the same C entry points (not for dtw, "
+                         "whose v1 is in the checkout)")
     ap.add_argument("--trial", action="append", default=[], metavar="LABEL=FLAGS",
                     help="also build the checkout's source with these extra nvcc flags "
                          "(space-separated) as trial state LABEL")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
+    if (args.kernel == "dtw") != (args.baseline is None) or (args.kernel == "dtw"
+                                                              and args.trial):
+        ap.error("--baseline (and --trial) go with --kernel ed|lb_sax|wkv6, not dtw")
 
     import torch
     if not torch.cuda.is_available():
@@ -463,6 +599,23 @@ def main(argv=None) -> int:
         return 2
     smi = cs.smi_line()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
+    if args.kernel == "dtw":
+        bad = check_dtw_bits()
+        rows = dtw_timings()
+    else:
+        bad, rows = compare_builds(args)
+    line = json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                       "kernel": args.kernel, "bits_differ": bad, "timings": rows})
+    print(line)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    return 1 if bad else 0
+
+
+def compare_builds(args) -> tuple[list, list]:
+    """The bits and times of ``--kernel ed|lb_sax|wkv6``: the baseline's build
+    against the checkout's (and each trial's)."""
     with tempfile.TemporaryDirectory(prefix="kernel-ab-") as tmp:
         from repro_torch.kernels import _build
         builds = {"v1": load_baseline(args.kernel, Path(args.baseline).resolve(), Path(tmp)),
@@ -486,13 +639,7 @@ def main(argv=None) -> int:
             print("[witness] row minima and first argmins equal ed_min's at the main shapes",
                   flush=True)
             rows = ed_timings(builds)
-    line = json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                       "kernel": args.kernel, "bits_differ": bad, "timings": rows})
-    print(line)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
-    return 1 if bad else 0
+    return bad, rows
 
 
 if __name__ == "__main__":
