@@ -174,11 +174,13 @@ Phases (any failure ends the run with a non-zero exit):
    tensor's largest magnitude), recurrentgemma at full width and 3 layers
    (rec, rec, attn; a 64-token prefill and 4 decode steps within 1e-4,
    tokens equal);
-22. ``wkv6_bwd`` (the gradient's kernel) against its plain version
+22. ``wkv6_bwd`` (the gradient's kernel, v2) against its plain version
    ``wkv6_bwd_ref``: float32 at (2, 67, 3, 64, 64) with w == 0 in one
    chunk (every gradient within 1e-5 of its tensor's largest magnitude, dw
    0 at the reset rows), ragged K/V, T=1, T=0; bf16 at the training shape
-   (4, 512, 64, 64, 64); two launches bit-equal; times and the bound;
+   (4, 512, 64, 64, 64); bit for bit ``wkv6_bwd_fma_ref`` at the check
+   shape and the ragged shapes; two launches bit-equal; times and the
+   bound;
 23. ``rg_lru_scan_bwd`` equal to ``rg_lru_scan_bwd_ref`` bit for bit at the
    training shape (4, 512, 2560), T=1, a ragged shape and T=0, on the card
    and against the CPU; times and the bound;
@@ -191,7 +193,8 @@ Phases (any failure ends the run with a non-zero exit):
    ``rg_lru_scan`` and 18 ``rg_lru_scan_bwd`` launches a step;
 26. the card against the CPU in float32: rwkv6 at full width and 2 layers
    and recurrentgemma at full width and 3 layers (logits, the train step's
-   metrics, each gradient within 1e-4 of its tensor's largest magnitude);
+   metrics, each gradient within 1e-4 of its tensor's largest magnitude;
+   rwkv6's largest gap printed beside v1's 7.736e-05);
    recurrentgemma's smoke config: AdamW on the same gradients within 1e-6
    (moments a list of layers) and a checkpoint (blocks as a list) resumed
    on the card within 1e-6.
@@ -214,6 +217,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3069,6 +3073,7 @@ RWKV_ARCH = "rwkv6-7b"
 RWKV_TRAIN_LAYERS = 12          # of 32: 3,161,161,728 parameters, 50.6 GB with AdamW
 WKV_TRAIN_SHAPE = (TRAIN_B, TRAIN_S, 64, 64, 64)
 WKV_CHECK_SHAPE = (2, 67, 3, 64, 64)
+RWKV_V1_GAP = 7.736e-05         # phase 26's rwkv6 gradient gap with wkv6_bwd v1
 RG_TRAIN_SHAPE = (TRAIN_B, TRAIN_S, 2560)
 GRAD_REL_TOL = 1e-5             # a kernel's gradient against its plain version, of the max
 BF16_GRAD_REL_TOL = 8e-3        # bf16 gradients: a bf16 step (2^-8) of the max, with room
@@ -3120,18 +3125,41 @@ def _hold_wkv6_bwd(args, got, tol: float, what: str) -> float:
     return worst
 
 
+def hold_wkv6_bwd_bits(args, got, what: str) -> None:
+    """``got``, the ``wkv6_bwd`` kernel's gradients on ``args``, equals
+    ``kernels/ref.py::wkv6_bwd_fma_ref`` (the kernel's sums in its order,
+    through a correctly rounded fmaf) in every bit, NaNs as one word."""
+    from repro_torch.kernels import ref
+    for name, a, b in zip(WKV_GRAD_NAMES, got, ref.wkv6_bwd_fma_ref(*args)):
+        bad = int((wkv_words(a) != wkv_words(b)).sum())
+        check(bad == 0, f"wkv6_bwd {what}: {bad} {name} words differ from wkv6_bwd_fma_ref")
+
+
+def source_variant(name: str) -> str:
+    """The design tag (``v2``, ...) that ends the first line of
+    ``csrc/<name>.cu``."""
+    from repro_torch.kernels import _build
+    with open(_build.CSRC / f"{name}.cu") as f:
+        first = f.readline()
+    m = re.search(r"\b(v\d+)\.?\s*$", first)
+    check(m is not None, f"csrc/{name}.cu: no design tag ending its first line: {first!r}")
+    return m.group(1)
+
+
 def phase_wkv6_bwd_kernel():
     """``wkv6_bwd`` against its plain version ``wkv6_bwd_ref`` on the card:
     float32 at (2, 67, 3, 64, 64) with w == 0 at some rows of steps 40-42,
     every gradient within 1e-5 of its tensor's largest magnitude and dw 0
     at those rows; ragged K and V, T=1 and T=0; bf16 r, k, v at the
-    training shape (4, 512, 64, 64, 64) within a bf16 step; two launches
-    bit-equal at both shapes. Times at the training shape by the host loop
-    and by a CUDA graph, the plain version's once. Returns the kernel's row
-    (its launches are filled in by phase 24)."""
+    training shape (4, 512, 64, 64, 64) within a bf16 step; bit for bit
+    ``wkv6_bwd_fma_ref`` at the check shape and the ragged shapes; two
+    launches bit-equal at both shapes. Times at the training shape by the
+    host loop and by a CUDA graph, the plain version's once. Returns the
+    kernel's row (its launches are filled in by phase 24)."""
     import torch
     from repro_torch.kernels import ref, wkv6 as kwkv
 
+    variant = source_variant("wkv6_bwd")
     g = torch.Generator(device="cuda").manual_seed(22)
 
     def grads_in(shape, dtype=None):
@@ -3149,12 +3177,15 @@ def phase_wkv6_bwd_kernel():
     got = kwkv.wkv6_bwd(*args)
     err32 = _hold_wkv6_bwd(args, got, GRAD_REL_TOL, f"{WKV_CHECK_SHAPE} float32, w == 0 at "
                                                     f"steps 40-42")
+    hold_wkv6_bwd_bits(args, got, f"{WKV_CHECK_SHAPE} float32")
     again = kwkv.wkv6_bwd(*args)
     for name, a, b in zip(WKV_GRAD_NAMES, got, again):
         check(torch.equal(words32(a), words32(b)), f"wkv6_bwd: two launches differ in {name}")
     for shape in ((1, 5, 2, 33, 17), (2, 40, 1, 64, 7), (2, 1, 4, 64, 64), (1, 0, 2, 8, 8)):
         a = grads_in(shape)
-        _hold_wkv6_bwd(a, kwkv.wkv6_bwd(*a), GRAD_REL_TOL, f"{shape} float32")
+        got_a = kwkv.wkv6_bwd(*a)
+        _hold_wkv6_bwd(a, got_a, GRAD_REL_TOL, f"{shape} float32")
+        hold_wkv6_bwd_bits(a, got_a, f"{shape} float32")
     train = grads_in(WKV_TRAIN_SHAPE, torch.bfloat16)
     t0 = time.perf_counter()
     want = ref.wkv6_bwd_ref(*train)
@@ -3176,10 +3207,11 @@ def phase_wkv6_bwd_kernel():
               f"wkv6_bwd {WKV_TRAIN_SHAPE} bf16: two launches differ in {name}")
     del want, again
     torch.cuda.synchronize()
-    log(f"[wkv6_bwd] within {err32:.3e} of wkv6_bwd_ref's largest magnitudes at "
-        f"{WKV_CHECK_SHAPE} float32 (w == 0 at steps 40-42, dw 0 there; limit {GRAD_REL_TOL}), "
-        f"at ragged K/V, T=1 and T=0; within {err16:.3e} at {WKV_TRAIN_SHAPE} bf16 (limit "
-        f"{BF16_GRAD_REL_TOL}); two launches bit-equal at both shapes")
+    log(f"[wkv6_bwd] {variant}: within {err32:.3e} of wkv6_bwd_ref's largest "
+        f"magnitudes at {WKV_CHECK_SHAPE} float32 (w == 0 at steps 40-42, dw 0 there; limit "
+        f"{GRAD_REL_TOL}), at ragged K/V, T=1 and T=0; bit for bit wkv6_bwd_fma_ref at "
+        f"{WKV_CHECK_SHAPE} and the ragged shapes; within {err16:.3e} at {WKV_TRAIN_SHAPE} bf16 "
+        f"(limit {BF16_GRAD_REL_TOL}); two launches bit-equal at both shapes")
 
     def run():
         return kwkv.wkv6_bwd(*train)
@@ -3188,12 +3220,14 @@ def phase_wkv6_bwd_kernel():
                replaces="src/repro/kernels/ref.py:55 (jax.vjp of wkv6_ref, which the reference "
                         "trains through; no TPU kernel: src/repro/kernels/wkv6.py has no "
                         "backward)",
-               shape=list(WKV_TRAIN_SHAPE), launches=None, max_abs_err=max_abs,
+               variant=variant, shape=list(WKV_TRAIN_SHAPE), launches=None,
+               max_abs_err=max_abs,
                ms=time_ms(run, reps=10, warmup=2), device_ms=device_ms(run, reps=10),
                plain_ms=plain_ms, library_ms=None)
     row["bytes"], row["ops"] = _wkv_bwd_cost(*WKV_TRAIN_SHAPE, 2)
     _bound(row)
-    log(f"[timing] wkv6_bwd {WKV_TRAIN_SHAPE} bf16: host loop {row['ms']:.4f} ms, device "
+    log(f"[timing] wkv6_bwd {variant} {WKV_TRAIN_SHAPE} bf16: host loop "
+        f"{row['ms']:.4f} ms, device "
         f"{row['device_ms']:.4f}, plain {plain_ms:.1f} (one run), library none; bound "
         f"{row['bound_ms']:.4f} by {row['bound_by']} ({row['bytes'] / 1e6:.1f} MB, "
         f"{row['ops'] / 1e9:.3f} G operations; {row['bound_ms'] / row['device_ms']:.1%})")
@@ -3521,6 +3555,9 @@ def phase_recurrent_cpu_agreement():
         out[arch] = {**errs, "grad_norms": [ng, nc]}
         if arch == RWKV_ARCH:
             out[arch]["gaps"] = _wkv6_gap_report(rec, gg, gc, tag)
+            log(f"[recurrent-agree] {tag}: the largest gradient gap, card vs CPU, is "
+                f"{errs['grad_rel_err']:.3e} of its tensor's largest magnitude against the "
+                f"1e-4 limit (wkv6_bwd v1: {RWKV_V1_GAP:.3e})")
         del rec
         log(f"[recurrent-agree] {tag}: grad norm {ng:.6f} vs {nc:.6f}; launches {launches} "
             f"(s: copy {t_copy:.2f}, forward and gradients {t_grads:.2f})")

@@ -125,7 +125,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             fn.restype = _I
     elif name == "wkv6_bwd":
         for fn in (lib.wkv6_bwd_f32, lib.wkv6_bwd_bf16):
-            fn.argtypes = [_P] * 17 + [_I] * 5 + [_P]
+            fn.argtypes = [_P] * 16 + [_I] * 5 + [_P]
             fn.restype = _I
     elif name == "dtw":
         lib.dtw_band_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]

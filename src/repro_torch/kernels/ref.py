@@ -10,14 +10,15 @@ blocks so the ``(Q, rows, n)`` difference tensor stays bounded at the main
 path's shapes; blocking changes no arithmetic (each output element is one
 row's fixed-order sum).
 
-The squared-ED kernels of ``csrc/ed.cu`` and the ``wkv6`` kernel round
+The squared-ED kernels of ``csrc/ed.cu`` and the ``wkv6`` kernels round
 differently from the direct form, so they are held to it only within a
 tolerance. Bit for bit they are held to :func:`ed_matrix_fma_ref`,
-:func:`ed_min_fma_ref` and :func:`wkv6_fma_ref`, which repeat the kernels'
-own arithmetic (the same ``fmaf`` chains in the same order) through
-:func:`fmaf_ref`, a correctly rounded float32 fused multiply-add built from
-float64 operations. Those run on CPU and CUDA tensors alike and give the
-same bits on both (NaN payloads aside); they are for checking, not for
+:func:`ed_min_fma_ref`, :func:`wkv6_fma_ref` and :func:`wkv6_bwd_fma_ref`,
+which repeat the kernels' own arithmetic (the same ``fmaf`` chains and
+sums in the same order) through :func:`fmaf_ref`, a correctly rounded
+float32 fused multiply-add built from float64 operations. Those run on CPU
+and CUDA tensors alike and give the same bits on both (NaN payloads
+aside); they are for checking, not for
 serving.
 """
 from __future__ import annotations
@@ -253,9 +254,12 @@ def rg_lru_scan_bwd_ref(a: torch.Tensor, y: torch.Tensor, h0: torch.Tensor,
 
 def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                  u: torch.Tensor, s0: torch.Tensor, dout: torch.Tensor,
-                 dsT: torch.Tensor) -> tuple[torch.Tensor, ...]:
+                 dsT: torch.Tensor, dtype: torch.dtype = torch.float32
+                 ) -> tuple[torch.Tensor, ...]:
     """The gradient of :func:`wkv6_ref`, plain loops over T in float32 (what
-    ``jax.vjp`` of ``repro/kernels/ref.py::wkv6_ref`` computes).
+    ``jax.vjp`` of ``repro/kernels/ref.py::wkv6_ref`` computes), or in
+    ``dtype`` (float64: the yardstick the float32 versions are measured
+    against).
 
     Inputs as :func:`wkv6_ref`, with dout (B, T, H, V) and dsT (B, H, K, V),
     the gradients of its two outputs. A forward loop keeps every state
@@ -268,25 +272,26 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
     ``dw_t = rowsum(Gs * S_{t-1})`` (0 at a reset row of a finite state),
     ``du += r_t k_t (v_t . do_t)`` and ``G = diag(w_t) Gs + r_t do_t^T``.
     Returns (dr, dk, dv in r's dtype; dw (B, T, H, K), du (H, K) summed
-    over the batch in order, ds0 = G; float32)."""
+    over the batch in order, ds0 = G; float32), every one in ``dtype`` when
+    that is not float32."""
     b, t_len, h, dk = r.shape
-    f32 = [x.to(torch.float32) for x in (r, k, v, w, dout)]
-    rf, kf, vf, wf, dof = f32
-    uf = u.to(torch.float32)
-    s = s0.to(torch.float32, copy=True)
+    xs = [x.to(dtype) for x in (r, k, v, w, dout)]
+    rf, kf, vf, wf, dof = xs
+    uf = u.to(dtype)
+    s = s0.to(dtype, copy=True)
     states = []
     for t in range(t_len):
         states.append(s)
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (B, H, K, V)
         wd = wf[:, t, :, :, None]
         s = torch.where(wd == 0.0, kv, wd * s + kv)
-    dr, dkk, dw = (torch.empty((b, t_len, h, dk), dtype=torch.float32, device=r.device)
+    dr, dkk, dw = (torch.empty((b, t_len, h, dk), dtype=dtype, device=r.device)
                    for _ in range(3))
     dv = torch.empty_like(vf)
-    du = torch.zeros((b, h, dk), dtype=torch.float32, device=r.device)
-    g = dsT.to(torch.float32, copy=True)
+    du = torch.zeros((b, h, dk), dtype=dtype, device=r.device)
+    g = dsT.to(dtype, copy=True)
     for t in range(t_len - 1, -1, -1):
-        rt, kt, vt, wt, dot = (x[:, t] for x in f32)
+        rt, kt, vt, wt, dot = (x[:, t] for x in xs)
         s_prev = states[t]
         vdo = (vt * dot).sum(-1, keepdim=True)                    # (B, H, 1)
         kv = kt[..., :, None] * vt[..., None, :]
@@ -298,11 +303,111 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
         dw[:, t] = (gs * s_prev).sum(-1)
         du = du + rt * kt * vdo
         g = wt[..., :, None] * gs + rt[..., :, None] * dot[..., None, :]
-    du_sum = du[0].clone() if b else torch.zeros((h, dk), dtype=torch.float32,
-                                                   device=r.device)
+    du_sum = du[0].clone() if b else torch.zeros((h, dk), dtype=dtype, device=r.device)
     for i in range(1, b):
         du_sum = du_sum + du[i]
+    if dtype != torch.float32:
+        return dr, dkk, dv, dw, du_sum, g
     return dr.to(r.dtype), dkk.to(k.dtype), dv.to(v.dtype), dw, du_sum, g
+
+
+_BWD_TILE = 64      # csrc/wkv6_bwd.cu pads K and V to this
+
+
+def _lane_tree(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2^m) -> (...): the butterfly of a warp's shuffles over lane
+    masks 2^(m-1), ..., 2, 1, element e adding element e + 2^(m-1) first."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _row_chain_tree(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(..., 64, 64) x (..., 64, 64) or (..., 1, 64) -> (..., 64): sum_j
+    a_ij x_ij as ``csrc/wkv6_bwd.cu`` takes it: a chain over each group of
+    4 columns (``a x`` rounded, then fmaf), then the 16 groups' butterfly."""
+    a4 = a.unflatten(-1, (16, 4))
+    x4 = x.unflatten(-1, (16, 4))
+    acc = a4[..., 0] * x4[..., 0]
+    for c in range(1, 4):
+        acc = fmaf_ref(a4[..., c], x4[..., c], acc)
+    return _lane_tree(acc)
+
+
+def wkv6_bwd_fma_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                     u: torch.Tensor, s0: torch.Tensor, dout: torch.Tensor,
+                     dsT: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The gradient in the ``wkv6_bwd`` kernel's arithmetic
+    (``csrc/wkv6_bwd.cu``), bit for bit; arguments and results as
+    :func:`wkv6_bwd_ref`.
+
+    K and V are padded to 64 (r, k, v, do, u and the states with 0, w
+    with 1). The states are the forward's (``kv = k_i v_j`` rounded, ``S =
+    kv`` where ``w_i == 0``, else ``fmaf(w_i, S, kv)``). Per step, with
+    ``vdo = v . do`` and ``ruk = sum_i (u_i r_i) k_i`` each a chain of two
+    terms per lane (elements l and l + 32; the first a rounded product) and
+    a butterfly over 32 lanes: ``dr_i = fmaf(u_i k_i, vdo, sum_j S_ij
+    do_j)``, ``dk_i = fmaf(u_i r_i, vdo, sum_j G_ij v_j)``, ``dw_i = sum_j
+    Gs_ij S_ij``, each sum over columns a chain per group of 4 and the 16
+    groups' butterfly; ``dv_j = fmaf(ruk, do_j, sum_i G_ij k_i)``, the sum
+    a chain over rows 2 g, 2 g + 1, then pairs g = 2 m, 2 m + 1 added, then
+    the 16 m added in order; ``du_i = fmaf(r_i k_i, vdo, du_i)`` from 0
+    over t descending, then summed over b in order; ``G = fmaf(w_i, Gs, r_i
+    do_j)``. Every fmaf is :func:`fmaf_ref`'s correctly rounded one."""
+    b, t_len, h, dk = r.shape
+    dv = v.shape[-1]
+    n = _BWD_TILE
+    dev = r.device
+
+    def pad(x, value=0.0):
+        return torch.nn.functional.pad(x.to(torch.float32), (0, n - x.shape[-1]),
+                                       value=value)
+
+    rf, kf, wf = pad(r), pad(k), pad(w, 1.0)
+    vf, dof = pad(v), pad(dout)
+    uf = pad(u)
+    s = torch.zeros((b, h, n, n), dtype=torch.float32, device=dev)
+    s[..., :dk, :dv] = s0
+    g = torch.zeros_like(s)
+    g[..., :dk, :dv] = dsT
+    states = []
+    for t in range(t_len):
+        states.append(s)
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        wd = wf[:, t, :, :, None]
+        s = torch.where(wd == 0.0, kv, fmaf_ref(wd, s, kv))
+    grads = [torch.empty((b, t_len, h, n), dtype=torch.float32, device=dev) for _ in range(4)]
+    gr, gk, gw, gv = grads
+    du = torch.zeros((b, h, n), dtype=torch.float32, device=dev)
+    half = n // 2
+    for t in range(t_len - 1, -1, -1):
+        rt, kt, wt, vt, dot = (x[:, t] for x in (rf, kf, wf, vf, dof))
+        sp = states[t]
+        vdo = _lane_tree(fmaf_ref(vt[..., half:], dot[..., half:],
+                                  vt[..., :half] * dot[..., :half]))          # (B, H)
+        ur = uf * rt
+        ruk = _lane_tree(fmaf_ref(ur[..., half:], kt[..., half:],
+                                  ur[..., :half] * kt[..., :half]))
+        gr[:, t] = fmaf_ref(uf * kt, vdo[..., None], _row_chain_tree(sp, dot[..., None, :]))
+        gk[:, t] = fmaf_ref(ur, vdo[..., None], _row_chain_tree(g, vt[..., None, :]))
+        gs = torch.where(wt[..., :, None] == 0.0, torch.zeros_like(g), g)
+        gw[:, t] = _row_chain_tree(gs, sp)
+        pair = fmaf_ref(g[..., 1::2, :], kt[..., 1::2, None],
+                        g[..., 0::2, :] * kt[..., 0::2, None])               # (B, H, 32, n)
+        warps = pair[..., 0::2, :] + pair[..., 1::2, :]                      # (B, H, 16, n)
+        col = warps[..., 0, :]
+        for m in range(1, warps.shape[-2]):
+            col = col + warps[..., m, :]
+        gv[:, t] = fmaf_ref(ruk[..., None], dot, col)
+        du = fmaf_ref(rt * kt, vdo[..., None], du)
+        g = fmaf_ref(wt[..., :, None], gs, rt[..., :, None] * dot[..., None, :])
+    du_sum = du[0].clone() if b else torch.zeros((h, n), dtype=torch.float32, device=dev)
+    for i in range(1, b):
+        du_sum = du_sum + du[i]
+    return (gr[..., :dk].to(r.dtype), gk[..., :dk].to(k.dtype), gv[..., :dv].to(v.dtype),
+            gw[..., :dk].contiguous(), du_sum[:, :dk].contiguous(),
+            g[..., :dk, :dv].contiguous())
 
 
 _WKV_SPLIT = 4      # partial sums per state column in csrc/wkv6.cu

@@ -81,7 +81,15 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 wkv6.launches = 0
 
 
-BWD_CHUNK = 16          # steps a checkpoint of csrc/wkv6_bwd.cu covers (its CK)
+BWD_CHUNK = 8           # steps a checkpoint of csrc/wkv6_bwd.cu covers (its CK)
+
+
+def bwd_checkpoint_floats(b: int, t: int, h: int) -> int:
+    """Floats of :func:`wkv6_bwd`'s checkpoint scratch: a 64 x 64 float32
+    state per (batch, head) at the start of every chunk of ``BWD_CHUNK``
+    steps but the first (the initial state) and the last (the end of the
+    kernel's forward sweep, kept in registers)."""
+    return b * h * max(-(-t // BWD_CHUNK) - 2, 0) * MAX_HEAD * MAX_HEAD
 
 
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -91,9 +99,9 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     of its outputs, dout (B, T, H, V) in r's dtype and dsT (B, H, K, V)
     float32, on the CUDA device -> (dr, dk, dv in r's dtype; dw (B, T, H,
     K), du (H, K), dstate (B, H, K, V) float32). The kernel recomputes the
-    states from ``state`` (nothing is kept from the forward) in scratch
-    that this wrapper allocates: a checkpoint every ``BWD_CHUNK``
-    steps and one chunk's states, per (batch, head)."""
+    states from ``state`` (nothing is kept from the forward); this wrapper
+    allocates its scratch: the per-batch sums of du and the checkpoints
+    (:func:`bwd_checkpoint_floats`)."""
     b, t, h, dk, dv = _checked("wkv6_bwd", r, k, v, w, u, state, dout, dsT)
     dev = r.device
     ins = [x.contiguous() for x in (r, k, v, w, u, state, dout, dsT)]
@@ -103,8 +111,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             torch.empty((b, t, h, dk), **f32), torch.empty((h, dk), **f32),
             torch.empty((b, h, dk, dv), **f32)]
     scratch = [torch.empty((b * h * dk,), **f32),
-               torch.empty((b * h * -(-t // BWD_CHUNK) * dk * dv,), **f32),
-               torch.empty((b * h * min(t, BWD_CHUNK) * dk * dv,), **f32)]
+               torch.empty((bwd_checkpoint_floats(b, t, h),), **f32)]
     if h:                                   # else every output is empty
         err = getattr(lib, _BWD_ENTRY[r.dtype])(
             *(x.data_ptr() for x in ins + outs + scratch), b, t, h, dk, dv,

@@ -1000,7 +1000,10 @@ def test_rg_lru_scan_bwd_kernel_equals_plain_bitwise(cuda, b, t, r):
         assert torch.equal(x.cpu().view(torch.int32), cpu.view(torch.int32))
 
 
-def _wkv_grad_args(seed, b, t, h, dk, dv, dtype, cuda):
+def _wkv_grad_args(seed, b, t, h, dk, dv, dtype, cuda, step3=True):
+    """Inputs of ``wkv6_bwd`` from a seed: w == 0 at half the rows of step 3
+    (with ``step3``, T > 3) and at every third row of steps C + 1 .. C + 3
+    (T > C + 3), C the kernel's chunk: chunk 1 only."""
     rng = np.random.default_rng(seed)
 
     def n(*shape):
@@ -1008,22 +1011,29 @@ def _wkv_grad_args(seed, b, t, h, dk, dv, dtype, cuda):
 
     r, k, v, dout = n(b, t, h, dk), n(b, t, h, dk), n(b, t, h, dv), n(b, t, h, dv)
     w = torch.sigmoid(n(b, t, h, dk))
-    if t > 3:
+    if step3 and t > 3:
         w[:, 3, :, : dk // 2] = 0.0            # resets in one step
+    c = kwkv.BWD_CHUNK
+    if t > c + 3:
+        w[:, c + 1:c + 4, :, ::3] = 0.0        # resets in chunk 1
     return (r.to(dtype), k.to(dtype), v.to(dtype), w, n(h, dk), n(b, h, dk, dv),
             dout.to(dtype), n(b, h, dk, dv))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,h,dk,dv", [(2, 67, 3, 64, 64), (1, 33, 2, 33, 17),
-                                         (2, 1, 4, 64, 64), (1, 0, 2, 8, 8),
-                                         (1, 20, 1, 1, 1)])
-def test_wkv6_bwd_kernel_matches_plain(cuda, b, t, h, dk, dv, dtype):
-    """The gradient's kernel against ``wkv6_bwd_ref``: float32 within 1e-5
-    of each tensor's largest magnitude (bf16 gradients within a bf16 step,
-    8e-3 of it), dw exactly 0 at the reset rows, the dtypes of the inputs,
-    one launch a call, and a second launch bit-equal to the first."""
-    args = _wkv_grad_args(46, b, t, h, dk, dv, dtype, cuda)
+def _grad_words(x):
+    """The bits of a float32 or bf16 gradient, as integers."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x.view(torch.int16)
+
+
+WKV_BWD_CHUNK = kwkv.BWD_CHUNK     # csrc/wkv6_bwd.cu's steps a checkpoint covers
+
+
+def _hold_wkv6_bwd_kernel(args, dtype):
+    """The gradient's kernel on ``args`` against ``wkv6_bwd_ref`` (float32
+    within 1e-5 of each tensor's largest magnitude, bf16 gradients within a
+    bf16 step, 8e-3 of it), dw exactly 0 at the reset rows, the dtypes of
+    the inputs, one launch a call, a second launch bit-equal to the first,
+    and bit for bit ``wkv6_bwd_fma_ref``."""
     before = kwkv.wkv6_bwd.launches
     got = kwkv.wkv6_bwd(*args)
     assert kwkv.wkv6_bwd.launches == before + 1
@@ -1034,8 +1044,39 @@ def test_wkv6_bwd_kernel_matches_plain(cuda, b, t, h, dk, dv, dtype):
         np.testing.assert_allclose(x.float().cpu().numpy(), want.float().cpu().numpy(),
                                    rtol=0, atol=tol * max(biggest, 1e-30))
     assert not got[3][args[3] == 0.0].any()
+    for x, y in zip(got, tref.wkv6_bwd_fma_ref(*args)):
+        assert torch.equal(_grad_words(x), _grad_words(y))
     for x, y in zip(got, kwkv.wkv6_bwd(*args)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dk,dv", [(2, 67, 3, 64, 64), (1, 33, 2, 33, 17),
+                                         (2, 1, 4, 64, 64), (1, 0, 2, 8, 8),
+                                         (1, 20, 1, 1, 1),
+                                         (1, WKV_BWD_CHUNK - 1, 2, 64, 64),
+                                         (2, WKV_BWD_CHUNK, 1, 64, 64),
+                                         (1, WKV_BWD_CHUNK + 1, 2, 17, 64),
+                                         (2, 2 * WKV_BWD_CHUNK + 3, 2, 64, 64),
+                                         (4, 512, 64, 64, 64)])
+def test_wkv6_bwd_kernel_matches_plain(cuda, b, t, h, dk, dv, dtype):
+    """:func:`_hold_wkv6_bwd_kernel`, resets at step 3 (T > 3) and in chunk
+    1 (T > C + 3), at T across the kernel's chunk edges and at the training
+    shape."""
+    _hold_wkv6_bwd_kernel(_wkv_grad_args(46, b, t, h, dk, dv, dtype, cuda), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dk,dv", [(2, 2 * WKV_BWD_CHUNK + 3, 2, 64, 64),
+                                         (1, 2 * WKV_BWD_CHUNK + 3, 2, 33, 17)])
+def test_wkv6_bwd_kernel_resets_in_one_chunk(cuda, b, t, h, dk, dv, dtype):
+    """:func:`_hold_wkv6_bwd_kernel` with w == 0 in chunk 1 only: chunks 0
+    and 2 run without the reset's select."""
+    args = _wkv_grad_args(48, b, t, h, dk, dv, dtype, cuda, step3=False)
+    c = WKV_BWD_CHUNK
+    assert bool((args[3][:, c:2 * c] == 0).any()) and not bool((args[3][:, :c] == 0).any())
+    assert not bool((args[3][:, 2 * c:] == 0).any())
+    _hold_wkv6_bwd_kernel(args, dtype)
 
 
 def test_recurrent_train_steps_on_the_card_equal_cpu(cuda):

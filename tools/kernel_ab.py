@@ -2,8 +2,8 @@
 """Hold an older build of one of the port's CUDA sources against this
 checkout's on one CUDA card.
 
-    python3 tools/kernel_ab.py --kernel ed|lb_sax|wkv6 --baseline OLD.cu \
-        [--trial LABEL=FLAGS ...] [--out FILE]
+    python3 tools/kernel_ab.py --kernel ed|lb_sax|wkv6|wkv6_bwd --baseline OLD.cu \
+        [--trial LABEL=WORDS ...] [--baseline-trial LABEL=WORDS ...] [--out FILE]
     python3 tools/kernel_ab.py --kernel dtw [--out FILE]
 
 ``--baseline`` is an older ``csrc/<kernel>.cu`` with the same C entry
@@ -13,10 +13,15 @@ HEAD~1:src/repro_torch/kernels/csrc/lb_sax.cu`` into a gitignored
 directory; the checkout's own build is the package's. Both are launched
 through the package's wrappers (``repro_torch.kernels.ed``, ``.lb_sax``
 or ``.wkv6``), the baseline by standing in for the package's loaded
-library of that name. Each ``--trial LABEL=FLAGS`` (for example
-``A=-DED_MIN_TILES_ONLY``, or ``C16=-DWKV_CHUNK=16``) also builds the
-checkout's source with the extra ``nvcc`` flags, a trial state that joins
-every bits check and timing.
+library of that name. Each ``--trial LABEL=WORDS`` also builds the
+checkout's source, a trial state that joins every bits check and timing:
+a word that starts with ``-`` is an extra ``nvcc`` flag (``A=-DED_MIN_
+TILES_ONLY``, ``C16=-DWKV_CHUNK=16``), a word ``NAME=VALUE`` sets the
+source's ``constexpr int NAME`` in a copy of it (``c4=CK=4``; the copy
+must hold exactly one such line). ``--baseline-trial LABEL=WORDS`` builds
+the baseline's source so (``--kernel wkv6_bwd`` only; it and the v1
+caller below serve the v1 baseline, and go with the next change to this
+file).
 
 ``--kernel ed`` (the squared-ED kernels):
 
@@ -77,6 +82,34 @@ every bits check and timing.
    (steps a chunk), ``-DWKV_COLS=`` (columns a thread),
    ``-DWKV_STEP_UNROLL=``.
 
+``--kernel wkv6_bwd`` (the RWKV-6 gradient, ``csrc/wkv6_bwd.cu``). Each
+build runs through the package's wrapper, which sizes the checkpoint
+scratch by ``kernels/wkv6.py::BWD_CHUNK``: that is set to the build's own
+``constexpr int CK`` while it runs (``CK=N`` words change it). The first
+kernel's source (v1: a ``states`` scratch after ``ckpt``) has another C
+interface, and runs through a caller here that allocates v1's scratch.
+
+1. Bits and contract: every build's gradients within 1e-5 (float32) or
+   8e-3 (bf16 r, k, v) of each tensor's largest magnitude from
+   ``wkv6_bwd_ref``, dw exactly 0 at reset rows of a finite state; each
+   build of the checkout's source (trials too: the chunk changes no sum)
+   equal to ``wkv6_bwd_fma_ref`` as words (NaNs as one word). At every T in
+   {0, 1, C - 1, C, C + 1, 2C + 3, 512} (C = ``BWD_CHUNK``) x K, V
+   in {1, 17, 33, 64}, float32 and bf16, B = H = 2, at K = V = 64 also one
+   element in (the element path); w == 0 in one chunk only; the extreme
+   decays of ``--kernel wkv6``; overflow-then-reset (held where both are
+   finite: the plain version forms k v^T, which overflows where the
+   kernels' factored u k (v . do) does not; every gradient finite from the
+   step after the reset on); the check shape (2, 67, 3, 64, 64) and the training shape (4, 512, 64, 64,
+   64), both dtypes.
+2. Distance from float64: each build's largest error in each gradient
+   against ``wkv6_bwd_ref(..., dtype=torch.float64)``, over that
+   gradient's largest magnitude, with the float32 plain version's beside
+   them: float32 at the check and training shapes.
+3. Times at the training shape, bf16 and float32, in turns by both
+   yardsticks as for ``ed``; the bound is ``chip_smoke.py``'s. The trial
+   word of either source: ``CK=N`` (steps a checkpoint covers).
+
 ``--kernel dtw`` (``dtw_band``; no ``--baseline``: v1 stays in the
 checkout's ``csrc/dtw.cu`` for wide bands, so both are launched by
 ``kernels/dtw.py::dtw_band_as``):
@@ -106,6 +139,7 @@ import contextlib
 import ctypes
 import itertools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -121,17 +155,58 @@ ED_EDGES = [(1, 1, 1), (1, 100, 128), (5, 77, 48), (8, 129, 33), (130, 4097, 256
          (127, 31, 7), (1, 4097, 256), (129, 131073, 255)]
 
 
-def load_baseline(name: str, src: Path, workdir: Path, label: str = "baseline",
-                  flags: tuple = ()) -> ctypes.CDLL:
-    """Compile ``src`` with the package's flags (and ``flags``) and declare
-    it as library ``name``."""
+def patched(text: str, pairs, what: str) -> str:
+    """``text`` with each ``old`` of ``pairs`` (old, new) replaced by its
+    ``new``; ends the run if an ``old`` is not in it (``what`` names the
+    source)."""
+    for old, new in pairs:
+        if old not in text:
+            raise SystemExit(f"kernel_ab: anchor not found in {what}: {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def with_constexprs(text: str, sets, what: str) -> str:
+    """``text`` with ``constexpr int NAME = VALUE;`` for each ``NAME=VALUE``
+    of ``sets``; ends the run unless exactly one such line holds NAME."""
+    for word in sets:
+        name, _, value = word.partition("=")
+        text, n = re.subn(rf"(constexpr int {re.escape(name)} = )[^;]+;", rf"\g<1>{value};", text)
+        if n != 1:
+            raise SystemExit(f"kernel_ab: {n} lines 'constexpr int {name} = ...;' in {what}")
+    return text
+
+
+def compile_text(name: str, text: str, workdir: Path, label: str,
+                 flags=()) -> ctypes.CDLL:
+    """Compile ``text`` (a ``csrc/<name>.cu``, as a copy in ``workdir``)
+    with the package's flags and ``flags``."""
     from repro_torch.kernels import _build
+    src = workdir / f"{name}_{label}.cu"
+    src.write_text(text)
     lib = workdir / f"lib{name}_{label}.so"
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
                            str(src)], capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    loaded = ctypes.CDLL(str(lib))
+        raise RuntimeError(f"nvcc failed for {name} {label}:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(lib))
+
+
+def trial_text(src: Path, words: str) -> tuple[str, list]:
+    """A trial's source text (``NAME=VALUE`` words set) and nvcc flags
+    (words that start with ``-``)."""
+    words = words.split()
+    sets = [w for w in words if not w.startswith("-")]
+    return with_constexprs(src.read_text(), sets, str(src)), [w for w in words if w not in sets]
+
+
+def load_baseline(name: str, src: Path, workdir: Path, label: str = "baseline",
+                  words: str = "") -> ctypes.CDLL:
+    """Compile ``src`` with the package's flags, as ``words`` say, and
+    declare it as library ``name``."""
+    from repro_torch.kernels import _build
+    text, flags = trial_text(src, words)
+    loaded = compile_text(name, text, workdir, label, flags)
     _build._declare(name, loaded)
     return loaded
 
@@ -263,6 +338,12 @@ def in_turns(lib: str, builds: dict, kname: str, shape, mode: str, fn, reps: int
     for label in [*builds, *reversed(builds)]:
         with using(lib, builds[label]):
             runs[label].append((cs.time_ms(fn, reps, warmup=2), cs.device_ms(fn, reps)))
+    return turns_row(kname, shape, mode, reps, bound, runs)
+
+
+def turns_row(kname: str, shape, mode: str, reps: int, bound: float, runs: dict) -> dict:
+    """The row of timings in turns (``runs``: label -> [(host loop ms,
+    graph ms), ...]), printed."""
     row = {"kernel": kname, "shape": list(shape), "mode": mode, "reps": reps,
            "bound_ms": bound, "runs": runs,
            "ms": {k: sum(e for e, _ in v) / 2 for k, v in runs.items()},
@@ -464,6 +545,243 @@ def wkv_timings(builds: dict) -> list:
     return rows
 
 
+WKV_BWD_DIMS = (1, 17, 33, 64)
+WKV_BWD_CHECK = (2, 67, 3, 64, 64)
+WKV_BWD_TRAIN = (4, 512, 64, 64, 64)
+WKV_BWD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+
+
+class BwdBuild:
+    """One build of a ``wkv6_bwd.cu``, ``ck`` steps a checkpoint (its
+    ``CK``). Inside :meth:`context` the package's wrapper launches it, with
+    ``BWD_CHUNK`` set to ``ck``; a v1 source (``v1``) is launched by
+    :meth:`grads` here, with v1's scratch."""
+
+    def __init__(self, lib, ck: int, v1: bool = False):
+        self.lib, self.ck, self.v1 = lib, ck, v1
+
+    @contextlib.contextmanager
+    def context(self):
+        from repro_torch.kernels import wkv6 as kwkv
+        if self.v1:
+            yield
+            return
+        own = kwkv.BWD_CHUNK
+        kwkv.BWD_CHUNK = self.ck
+        try:
+            with using("wkv6_bwd", self.lib):
+                yield
+        finally:
+            kwkv.BWD_CHUNK = own
+
+    def grads(self, r, k, v, w, u, s0, dout, dst):
+        import torch
+        from repro_torch.kernels import _build, wkv6 as kwkv
+        if not self.v1:
+            return kwkv.wkv6_bwd(r, k, v, w, u, s0, dout, dst)
+        # v1 only (the first design's source): goes with --baseline-trial.
+        b, t, h, dk = r.shape
+        dv = v.shape[-1]
+        f32 = dict(dtype=torch.float32, device=r.device)
+        ins = [x.contiguous() for x in (r, k, v, w, u, s0, dout, dst)]
+        outs = [torch.empty_like(ins[0]), torch.empty_like(ins[1]), torch.empty_like(ins[2]),
+                torch.empty((b, t, h, dk), **f32), torch.empty((h, dk), **f32),
+                torch.empty((b, h, dk, dv), **f32)]
+        scratch = [torch.empty((b * h * dk,), **f32),
+                   torch.empty((b * h * -(-t // self.ck) * dk * dv,), **f32),
+                   torch.empty((b * h * min(t, self.ck) * dk * dv,), **f32)]
+        entry = self.lib.wkv6_bwd_f32 if r.dtype == torch.float32 else self.lib.wkv6_bwd_bf16
+        _build.check(entry(*(x.data_ptr() for x in ins + outs + scratch), b, t, h, dk, dv,
+                           torch.cuda.current_stream(r.device).cuda_stream), "wkv6_bwd v1")
+        return tuple(outs)
+
+
+def bwd_text_build(text: str, workdir: Path, label: str, flags=()) -> BwdBuild:
+    """Compile a ``wkv6_bwd.cu``'s ``text``: v1's C interface (17 pointers)
+    if its entry points take a ``states`` scratch, else the checkout's."""
+    from repro_torch.kernels import _build
+    loaded = compile_text("wkv6_bwd", text, workdir, label, flags)
+    ck = int(re.search(r"constexpr int CK = (\d+);", text).group(1))
+    if "float* states, int B" not in text:
+        _build._declare("wkv6_bwd", loaded)
+        return BwdBuild(loaded, ck)
+    for fn in (loaded.wkv6_bwd_f32, loaded.wkv6_bwd_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return BwdBuild(loaded, ck, v1=True)
+
+
+def load_bwd(src: Path, workdir: Path, label: str, words: str = "") -> BwdBuild:
+    """Compile a ``wkv6_bwd.cu`` as ``words`` say (see :func:`trial_text`)."""
+    text, flags = trial_text(src, words)
+    return bwd_text_build(text, workdir, label, flags)
+
+
+def own_bwd() -> BwdBuild:
+    """The checkout's own build, the package's."""
+    from repro_torch.kernels import _build, wkv6 as kwkv
+    return BwdBuild(_build.library("wkv6_bwd"), kwkv.BWD_CHUNK)
+
+
+def bwd_grads_in(g, shape, dtype):
+    """r, k, v (in ``dtype``), w, u, s0, dout (``dtype``), dsT on the card."""
+    import torch
+    b, t, h, dk, dv = shape
+    a = list(cs._wkv_inputs(g, b, t, h, dk, dv, dtype))
+    dout = torch.randn((b, t, h, dv), generator=g, device="cuda").to(a[0].dtype)
+    return a + [dout, torch.randn((b, h, dk, dv), generator=g, device="cuda")]
+
+
+def wkv_bwd_cases(chunk: int):
+    """(label, args, after) of the bits grid, made on the card from a seed;
+    ``after`` is the first step after an overflowed state's reset, else
+    None."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(27)
+    ts = (0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk + 3, 512)
+    for dtype, dk, dv, t in itertools.product((torch.float32, torch.bfloat16), WKV_BWD_DIMS,
+                                              WKV_BWD_DIMS, ts):
+        name = str(dtype)[6:]
+        a = bwd_grads_in(g, (2, t, 2, dk, dv), dtype)
+        yield f"{name} T={t} K={dk} V={dv}", a, None
+        if dk == dv == 64 and t in (chunk + 1, 512):
+            off = [wkv_place(x, x.dtype, 1) for x in a]
+            yield f"{name} T={t} K=V=64 +1 elem", off, None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for shape in (WKV_BWD_CHECK, WKV_BWD_TRAIN):
+            yield f"{name} {shape}", bwd_grads_in(g, shape, dtype), None
+        for dk, dv in ((64, 64), (33, 17)):
+            a = bwd_grads_in(g, (2, 2 * chunk + 3, 2, dk, dv), dtype)
+            one = slice(chunk, 2 * chunk)
+            a[3][:, one] = torch.where(torch.rand(a[3][:, one].shape, generator=g,
+                                                  device="cuda") < 0.3, 0.0, a[3][:, one])
+            yield f"w == 0 in chunk 1 only, {name} K={dk} V={dv}", a, None
+    b, t, h, dk, dv = 1, 64, 1, 4, 4
+    base = bwd_grads_in(g, (b, t, h, dk, dv), torch.float32)
+    mixed = torch.stack([torch.zeros(b, t, h), torch.ones(b, t, h),
+                         torch.full((b, t, h), 1e-38), torch.full((b, t, h), 1.0 - 1e-6)],
+                        -1).cuda()
+    for wv in (0.0, 1e-38, 1e-6, 1.0 - 1e-6, 1.0, None):
+        a = list(base)
+        a[3] = mixed if wv is None else torch.full((b, t, h, dk), wv, device="cuda")
+        yield f"decay {wv if wv is not None else 'mixed'}", a, None
+    a = [x[:, :24].clone() if x.ndim == 4 and x.shape[1] == t else x for x in base]
+    a[1][:, :8] = 2e19
+    a[2][:, :8] = 2e19
+    a[3] = torch.ones(b, 24, h, dk, device="cuda")
+    a[3][:, 8] = 0.0
+    a[5] = torch.zeros_like(a[5])
+    yield "overflow-then-reset", a, 9
+
+
+def hold_bwd_contract(args, got, want, after=None) -> list:
+    """What of ``got`` breaks the contract against ``want`` (wkv6_bwd_ref's
+    gradients): dtype and shape, within the dtype's tolerance of each
+    tensor's largest magnitude, dw 0 at reset rows of a finite state. With
+    ``after`` (an overflowed state reset at step ``after - 1``): held where
+    both are finite, and every gradient of a step from ``after`` on, and
+    ds0, finite."""
+    import torch
+    tol = WKV_BWD_TOL[str(args[0].dtype)[6:]]
+    bad = []
+    for name, a, b in zip(cs.WKV_GRAD_NAMES, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            bad.append(f"{name} {a.dtype} {tuple(a.shape)}")
+            continue
+        a, b = a.float(), b.float()
+        keep = torch.isfinite(a) & torch.isfinite(b)
+        if after is None and not bool(keep.all()):
+            bad.append(f"{name} not finite")
+        if after is not None and name != "du":
+            late = a[:, after:] if a.ndim == 4 and name != "ds0" else a
+            if not bool(torch.isfinite(late).all()):
+                bad.append(f"{name} not finite after the reset")
+        if bool(keep.any()):
+            err = float((a[keep] - b[keep]).abs().max())
+            if err > tol * max(float(b[keep].abs().max()), 1e-30):
+                bad.append(f"{name} off by {err:.3e}")
+    if after is None and bool((args[3] == 0).any()) and bool((got[3][args[3] == 0] != 0).any()):
+        bad.append("dw not 0 where w == 0")
+    return bad
+
+
+def check_wkv6_bwd_bits(builds: dict, own: set) -> list:
+    """Every build against ``wkv6_bwd_ref``'s contract, and the builds of
+    the checkout's source (``own``) against ``wkv6_bwd_fma_ref`` as words;
+    returns the differing cases."""
+    import torch
+    from repro_torch.kernels import ref, wkv6 as kwkv
+    chunk = kwkv.BWD_CHUNK
+    bad, count, cases = [], 0, 0
+    for label, a, after in wkv_bwd_cases(chunk):
+        cases += 1
+        want = ref.wkv6_bwd_ref(*a)
+        exact = [cs.wkv_words(x) for x in ref.wkv6_bwd_fma_ref(*a)]
+        for name, build in builds.items():
+            with build.context():
+                got = build.grads(*a)
+            count += 1
+            bad += [f"{name} {label}: {x}" for x in hold_bwd_contract(a, got, want, after)]
+            if name in own:
+                count += 1
+                for part, x, y in zip(cs.WKV_GRAD_NAMES, got, exact):
+                    if not torch.equal(cs.wkv_words(x), y):
+                        bad.append(f"{name} vs fma: {part} {label}")
+        del a, want, exact
+    print(f"[bits] {count} checks over {cases} cases (chunk {chunk}): {len(bad)} fail "
+          f"{bad[:10] if bad else ''}", flush=True)
+    return bad
+
+
+def wkv6_bwd_distance(builds: dict) -> list:
+    """Each build's and the float32 plain version's largest error in each
+    gradient against the float64 plain version, over its largest magnitude
+    (float32 inputs)."""
+    import torch
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(28)
+    rows = []
+    for shape in (WKV_BWD_CHECK, WKV_BWD_TRAIN):
+        a = bwd_grads_in(g, shape, torch.float32)
+        f64 = ref.wkv6_bwd_ref(*a, dtype=torch.float64)
+        outs = {"plain f32": ref.wkv6_bwd_ref(*a)}
+        for name, build in builds.items():
+            with build.context():
+                outs[name] = build.grads(*a)
+        row = {"shape": list(shape), "rel_err_vs_float64": {}}
+        for name, got in outs.items():
+            row["rel_err_vs_float64"][name] = {
+                n: float((x.double() - y).abs().max()) / max(float(y.abs().max()), 1e-300)
+                for n, x, y in zip(cs.WKV_GRAD_NAMES, got, f64)}
+        print(f"[float64] {'x'.join(map(str, shape))} float32: " + "; ".join(
+            f"{name} " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            for name, errs in row["rel_err_vs_float64"].items()), flush=True)
+        rows.append(row)
+        del a, f64, outs
+    return rows
+
+
+def wkv6_bwd_timings(builds: dict) -> list:
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(29)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        a = bwd_grads_in(g, WKV_BWD_TRAIN, dtype)
+        nbytes, ops = cs._wkv_bwd_cost(*WKV_BWD_TRAIN, a[0].element_size())
+        bound = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.FP32_FLOPS)
+        runs: dict = {label: [] for label in builds}
+        for label in [*builds, *reversed(builds)]:
+            build = builds[label]
+            with build.context():
+                def fn(build=build):
+                    return build.grads(*a)
+                runs[label].append((cs.time_ms(fn, 10, warmup=2), cs.device_ms(fn, 10)))
+        rows.append(turns_row("wkv6_bwd", WKV_BWD_TRAIN, str(dtype)[6:], 10, bound, runs))
+        del a
+    return rows
+
+
 DTW_N = 256
 DTW_SHAPES = [(1, 4096), (16, 256), (4, 256), (1, 1 << 22)]
 DTW_BANDS = (0, 13, 31, 32, 40)
@@ -579,19 +897,25 @@ def dtw_timings() -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", required=True, choices=("ed", "lb_sax", "wkv6", "dtw"),
+    ap.add_argument("--kernel", required=True,
+                    choices=("ed", "lb_sax", "wkv6", "wkv6_bwd", "dtw"),
                     help="which source under src/repro_torch/kernels/csrc to compare")
     ap.add_argument("--baseline", default=None,
                     help="an older <kernel>.cu with the same C entry points (not for dtw, "
                          "whose v1 is in the checkout)")
-    ap.add_argument("--trial", action="append", default=[], metavar="LABEL=FLAGS",
-                    help="also build the checkout's source with these extra nvcc flags "
-                         "(space-separated) as trial state LABEL")
+    ap.add_argument("--trial", action="append", default=[], metavar="LABEL=WORDS",
+                    help="also build the checkout's source as trial state LABEL: words "
+                         "(space-separated) that start with '-' are extra nvcc flags, "
+                         "NAME=VALUE sets its 'constexpr int NAME' in a copy")
+    ap.add_argument("--baseline-trial", action="append", default=[], metavar="LABEL=WORDS",
+                    help="also build the baseline's source so (--kernel wkv6_bwd)")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     args = ap.parse_args(argv)
     if (args.kernel == "dtw") != (args.baseline is None) or (args.kernel == "dtw"
                                                               and args.trial):
-        ap.error("--baseline (and --trial) go with --kernel ed|lb_sax|wkv6, not dtw")
+        ap.error("--baseline (and --trial) go with --kernel ed|lb_sax|wkv6|wkv6_bwd, not dtw")
+    if args.baseline_trial and args.kernel != "wkv6_bwd":
+        ap.error("--baseline-trial goes with --kernel wkv6_bwd")
 
     import torch
     if not torch.cuda.is_available():
@@ -604,8 +928,11 @@ def main(argv=None) -> int:
         rows = dtw_timings()
     else:
         bad, rows = compare_builds(args)
+    extra = {}
+    if args.kernel == "wkv6_bwd":
+        rows, extra["float64"] = rows
     line = json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                       "kernel": args.kernel, "bits_differ": bad, "timings": rows})
+                       "kernel": args.kernel, "bits_differ": bad, "timings": rows, **extra})
     print(line)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -618,12 +945,14 @@ def compare_builds(args) -> tuple[list, list]:
     against the checkout's (and each trial's)."""
     with tempfile.TemporaryDirectory(prefix="kernel-ab-") as tmp:
         from repro_torch.kernels import _build
+        if args.kernel == "wkv6_bwd":
+            return compare_bwd_builds(args, Path(tmp))
         builds = {"v1": load_baseline(args.kernel, Path(args.baseline).resolve(), Path(tmp)),
                   "v2": None}
         for trial in args.trial:
-            label, _, flags = trial.partition("=")
+            label, _, words = trial.partition("=")
             builds[label] = load_baseline(args.kernel, _build.CSRC / f"{args.kernel}.cu",
-                                          Path(tmp), label, tuple(flags.split()))
+                                          Path(tmp), label, words)
         if args.kernel == "lb_sax":
             bad = check_lb_bits(builds)
             rows = lb_timings(builds)
@@ -640,6 +969,26 @@ def compare_builds(args) -> tuple[list, list]:
                   flush=True)
             rows = ed_timings(builds)
     return bad, rows
+
+
+def compare_bwd_builds(args, tmp: Path) -> tuple[list, tuple]:
+    """``--kernel wkv6_bwd``: the baseline (and its trials), the checkout's
+    build and its trials; bits, distances from float64, times."""
+    from repro_torch.kernels import _build
+    base = Path(args.baseline).resolve()
+    builds = {"v1": load_bwd(base, tmp, "v1")}
+    for trial in args.baseline_trial:
+        label, _, words = trial.partition("=")
+        builds[label] = load_bwd(base, tmp, label, words)
+    builds["v2"] = own_bwd()
+    own = {"v2"}
+    for trial in args.trial:
+        label, _, words = trial.partition("=")
+        builds[label] = load_bwd(_build.CSRC / "wkv6_bwd.cu", tmp, label, words)
+        own.add(label)
+    bad = check_wkv6_bwd_bits(builds, own)
+    far = wkv6_bwd_distance(builds)
+    return bad, (wkv6_bwd_timings(builds), far)
 
 
 if __name__ == "__main__":
