@@ -161,13 +161,20 @@ Phases (any failure ends the run with a non-zero exit):
    float32 moments, remat, the auxiliary loss at 1e-2); loss, ``moe_aux``
    and grad norm finite, the last loss below the first; TFLOP/s by 6*N*D
    with N the 478,943,232 active parameters;
-19. ``rg_lru_scan`` equal to its plain version bit for bit at the Griffin
-   path's prefill (4, 512, 2560, nonzero h0) and decode (T=1) shapes, a
-   ragged shape and T=0, on the card and against the CPU; host-loop and
-   CUDA-graph times beside the plain version's and the bound;
+19. ``rg_lru_scan`` equal to its plain version bit for bit, on the card and
+   against the CPU, through the variant ``kernels/rg_lru.py::_plan`` picks
+   (v2 where R % 4 == 0, the operands are 16-byte aligned and T >= 64; v1
+   otherwise), one launch a call, counted under that variant: at the
+   Griffin path's prefill (4, 512, 2560, nonzero h0; v2) and decode (T=1;
+   v1) shapes, a ragged shape (v1), v2's tile tail (4, 515, 2560), R = 36
+   (R % 32 != 0; v2), T=0, and the prefill shape one float into its
+   buffers (v1); host-loop and CUDA-graph times beside the plain version's
+   and the bound;
 20. ``recurrentgemma-2b`` served at full width and depth as phase 14 serves
    (26 layers, 18 recurrent, window 2048, 3,549,934,080 float32
-   parameters); ``rg_lru_scan`` must launch 18 x 32 x 2 = 1,152 times;
+   parameters); ``rg_lru_scan`` must launch 18 x 32 x 2 = 1,152 times,
+   counted by variant and shape where they launch (36 prefills, 1,116
+   decode steps);
 21. the card against the CPU in float32: granite-moe at full width and 2
    layers and moonshot at its smoke config (logits and aux within 1e-4,
    the train step's metrics within 1e-4, each gradient within 1e-4 of its
@@ -181,16 +188,18 @@ Phases (any failure ends the run with a non-zero exit):
    (4, 512, 64, 64, 64); bit for bit ``wkv6_bwd_fma_ref`` at the check
    shape and the ragged shapes; two launches bit-equal; times and the
    bound;
-23. ``rg_lru_scan_bwd`` equal to ``rg_lru_scan_bwd_ref`` bit for bit at the
-   training shape (4, 512, 2560), T=1, a ragged shape and T=0, on the card
-   and against the CPU; times and the bound;
+23. ``rg_lru_scan_bwd`` equal to ``rg_lru_scan_bwd_ref`` bit for bit as
+   phase 19 holds the forward: at the training shape (4, 512, 2560; v2),
+   T=1 (v1), phase 19's edges and the training shape one float in (v1);
+   times and the bound;
 24. ``rwkv6-7b`` trained at full width, cut to 12 of 32 layers (float32
    AdamW state for 32 layers takes 120.6 GB), as phase 15 trains minicpm:
    6 steps at B=4, S=512, remat, float32 moments (the loss must fall), one
    int8-moment step; exactly 24 ``wkv6`` and 12 ``wkv6_bwd`` launches a
-   step (remat runs each layer's forward twice);
+   step, the int8 step's too (remat runs each layer's forward twice);
 25. ``recurrentgemma-2b`` trained at full width and depth the same way: 36
-   ``rg_lru_scan`` and 18 ``rg_lru_scan_bwd`` launches a step;
+   ``rg_lru_scan`` and 18 ``rg_lru_scan_bwd`` launches a step, the int8
+   step's too, counted by variant and shape;
 26. the card against the CPU in float32: rwkv6 at full width and 2 layers
    and recurrentgemma at full width and 3 layers (logits, the train step's
    metrics, each gradient within 1e-4 of its tensor's largest magnitude;
@@ -203,9 +212,15 @@ The line before the last two is ``{"kernels": [...]}`` (every row with
 ``device_ms``, a CUDA graph's time; two ``dtw_band`` rows from phase 7b,
 the round (16 x 256) and 1 x 4,096, each with its ``variant`` and
 ``lanes``, its other shapes in the summary; ``rg_lru_scan`` at the prefill
-and decode shapes, each row with the run's launches; ``wkv6_bwd`` and
-``rg_lru_scan_bwd`` at the training shapes, with the training phases'
-launches); then the card's ``nvidia-smi`` name
+and decode shapes and ``rg_lru_scan_bwd`` at the training shape, each with
+the launches that phases 20 and 25 (its int8 step included) counted at its
+shape and its ``variant``, the one those launches took (prefill 36 served
++ 216 in phase 25's six steps + 36 in its int8 step = 288, decode 1,116,
+gradient 108 + 18 = 126; every launch of those runs falls on a row);
+``wkv6_bwd`` at the training shape with phases 24's launches, its int8
+step's included: 84; the launches of the card-vs-CPU checks, phases 21 and
+26, at other shapes, are in no row); then the
+card's ``nvidia-smi`` name
 and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -521,8 +536,9 @@ def phase_adversarial():
 def reset_counters():
     from repro_torch.kernels import dtw as kdtw, ed as ked, lb_sax as klb, wkv6 as kwkv
     from repro_torch.kernels import rg_lru as krg
-    krg.rg_lru_scan.launches = 0
-    krg.rg_lru_scan_bwd.launches = 0
+    for fn in (krg.rg_lru_scan, krg.rg_lru_scan_bwd):
+        fn.launches = 0
+        fn.launches_by.clear()
     kdtw.dtw_band.launches = 0
     klb.lb_sax_matrix.launches = 0
     ked.ed_matrix.launches = 0
@@ -2435,6 +2451,19 @@ def _all_launches() -> dict:
             "rg_lru_scan_bwd": krg.rg_lru_scan_bwd.launches}
 
 
+def _rg_key(variant: str, shape) -> str:
+    return f"{variant} {'x'.join(map(str, shape))}"
+
+
+def _rg_launches_by() -> dict:
+    """The RG-LRU kernels' launches since the last reset, by variant and
+    (B, T, R), as the wrappers count them where they launch:
+    {kernel: {"v2 4x512x2560": n, ...}}."""
+    from repro_torch.kernels import rg_lru as krg
+    return {fn.__name__: {_rg_key(v, shape): n for (v, shape), n in fn.launches_by.items()}
+            for fn in (krg.rg_lru_scan, krg.rg_lru_scan_bwd)}
+
+
 def _init_on_card(tag: str, cfg, model, serving: bool = False):
     """The model's random parameters (seed 0) made on the card, logged with
     their count, bytes and seconds. Returns (params, count)."""
@@ -2461,7 +2490,8 @@ def _serve_lm(tag: str, cfg, model, params, want: dict, profile: bool = False) -
     there: 0). Then the same waves step by step through ``prefill`` /
     ``decode_step``, timed: every logit finite, the tokens the engine's.
     ``profile`` traces a prefill wave and a decode step. Returns the
-    summary; the peak is since the caller's last reset."""
+    summary (``rg_launches_by``: the served run's RG-LRU launches by variant
+    and shape); the peak is since the caller's last reset."""
     import numpy as np
     import torch
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -2479,7 +2509,7 @@ def _serve_lm(tag: str, cfg, model, params, want: dict, profile: bool = False) -
     out = eng.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = _all_launches()
+    launches, rg_by = _all_launches(), _rg_launches_by()
     tokens = sum(len(out[r]) for r in rids)
     log(f"[{tag}] served {len(out)} requests, {tokens} tokens in {run_s:.3f}s "
         f"({tokens / run_s:.1f} tok/s); the port's kernels launched {launches} (want "
@@ -2531,7 +2561,7 @@ def _serve_lm(tag: str, cfg, model, params, want: dict, profile: bool = False) -
         f"step-by-step tokens equal the engine's; peak device memory {peak:.2f} GiB")
     return {"run_s": run_s, "tok_per_s": tokens / run_s, "prefill_ms": prefill_ms,
             "decode_ms_median": dec[len(dec) // 2], "decode_ms_min": dec[0],
-            "peak_gib": peak, "launches": launches}
+            "peak_gib": peak, "launches": launches, "rg_launches_by": rg_by}
 
 
 def phase_dense_serve(profile: bool = False):
@@ -2873,44 +2903,97 @@ def _rg_cost(b, t, r):
     return 12 * b * t * r + 8 * b * r, 2 * b * t * r
 
 
+def _rg_bwd_cost(b, t, r):
+    """(bytes, operations) of the scan's gradient: a, y and dy read and da
+    and dg written once (4 bytes each), h0 and dhT read and dh0 written
+    once; an add and two multiplies an element."""
+    return 20 * b * t * r + 12 * b * r, 3 * b * t * r
+
+
+# the scan's edge shapes beside the path's (phases 19 and 23): a ragged shape,
+# v2's tile tail (T = 515), R % 32 != 0 with R % 4 == 0, and T = 0; and the
+# path's shape one float into its buffers (not 16-byte aligned: v1)
+RG_EDGES = {"ragged": (3, 37, 77), "tail": (4, 515, 2560), "r36": (2, 100, 36),
+            "empty": (2, 0, 5)}
+RG_MISALIGNED = "misaligned"
+
+
+def _rg_place(x, offset: int):
+    """``x`` ``offset`` floats into a new buffer: a contiguous view whose
+    storage offset leaves it off the 16-byte boundary."""
+    import torch
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:] = x.reshape(-1)
+    return buf[offset:].view(x.shape)
+
+
+def _rg_hold_bits(fn, ref_fn, x, names, what: str) -> str:
+    """The wrapper ``fn(*x)``, every output held to ``ref_fn`` on the card
+    and on the CPU in every bit; one launch (none at T=0), counted under
+    the variant that ``kernels/rg_lru.py::_plan`` picks for ``x``. Returns
+    that variant."""
+    from repro_torch.kernels import rg_lru as krg
+    b, t, r = x[0].shape
+    planned = krg._plan(t, r, krg._aligned(*(v for v in x if v.ndim == 3)))
+    want, cpu = ref_fn(*x), ref_fn(*(v.cpu() for v in x))
+    key = (planned, (b, t, r))
+    before, by = fn.launches, fn.launches_by[key]
+    got = fn(*x)
+    n = 1 if t and b * r else 0
+    check(fn.launches == before + n and fn.launches_by[key] == by + n,
+          f"{what}: {fn.launches - before} launches in one call, "
+          f"{fn.launches_by[key] - by} of them {planned}; want {n} {planned}")
+    for name, q, w, c in zip(names, got, want, cpu):
+        bad = int((words32(q) != words32(w)).sum())
+        check(bad == 0, f"{what} ({planned}): {bad} {name} words differ from the plain "
+                        f"version on the card")
+        bad = int((words32(q).cpu() != words32(c)).sum())
+        check(bad == 0, f"{what} ({planned}): {bad} {name} words differ from the plain "
+                        f"version on the CPU")
+    return planned
+
+
 def phase_rg_lru_kernel():
     """``rg_lru_scan`` equal to its plain version ``rg_lru_scan_ref`` in
-    every bit on the card (and to the plain version on the CPU) at the
-    Griffin path's prefill (4, 512, 2560) shape with a nonzero h0, its
-    decode shape (T=1), a ragged shape and T=0; host-loop and CUDA-graph
-    times at both main shapes beside the plain version's and the bound.
-    Returns the kernel's rows at the prefill and decode shapes (their
-    launches are filled in by phase 20)."""
+    every bit on the card (and to the plain version on the CPU), through
+    the variant ``_plan`` picks, at the Griffin path's prefill (4, 512,
+    2560) shape with a nonzero h0 (v2), its decode shape (T=1, v1), the
+    edges of ``RG_EDGES`` and the prefill shape one float into its buffers
+    (v1); host-loop and CUDA-graph times at both main shapes beside the
+    plain version's and the bound. Returns the kernel's rows at the
+    prefill and decode shapes, each with the ``variant`` timed here (their
+    launches, and the check that the path's took that variant, come from
+    phases 20 and 25)."""
     import torch
     from repro_torch.kernels import ref, rg_lru as krg
 
     g = torch.Generator(device="cuda").manual_seed(19)
-    args = {}
-    for kind, shape in {**RG_SHAPES, "ragged": (3, 37, 77), "empty": (2, 0, 5)}.items():
+    args, plans = {}, {}
+    cases = {**RG_SHAPES, **RG_EDGES, RG_MISALIGNED: RG_SHAPES["prefill"]}
+    for kind, shape in cases.items():
         b, t, r = shape
         a = torch.rand((b, t, r), generator=g, device="cuda")
         gated = torch.randn((b, t, r), generator=g, device="cuda")
         h0 = torch.randn((b, r), generator=g, device="cuda")
+        if kind == RG_MISALIGNED:
+            a, gated = _rg_place(a, 1), _rg_place(gated, 1)
         args[kind] = (a, gated, h0)
-        got = krg.rg_lru_scan(a, gated, h0)
-        for name, x, want, cpu in zip(("y", "hT"), got, ref.rg_lru_scan_ref(a, gated, h0),
-                                      ref.rg_lru_scan_ref(a.cpu(), gated.cpu(), h0.cpu())):
-            bad = int((words32(x) != words32(want)).sum())
-            check(bad == 0, f"rg_lru_scan {kind} {shape}: {bad} {name} words differ from "
-                            f"rg_lru_scan_ref on the card")
-            bad = int((words32(x).cpu() != words32(cpu)).sum())
-            check(bad == 0, f"rg_lru_scan {kind} {shape}: {bad} {name} words differ from "
-                            f"rg_lru_scan_ref on the CPU")
+        plans[kind] = _rg_hold_bits(krg.rg_lru_scan, ref.rg_lru_scan_ref, args[kind],
+                                    ("y", "hT"), f"rg_lru_scan {kind} {shape}")
     torch.cuda.synchronize()
+    want = {"prefill": "v2", "decode": "v1", RG_MISALIGNED: "v1"}
+    check(all(plans[k] == v for k, v in want.items()),
+          f"rg_lru_scan: _plan chose {plans}, not {want} at those shapes")
     log(f"[rg_lru] rg_lru_scan equals rg_lru_scan_ref bit for bit (on the card and on the "
-        f"CPU) at {RG_SHAPES['prefill']} with a nonzero h0, {RG_SHAPES['decode']}, "
-        f"(3, 37, 77) and T=0")
+        f"CPU) through the planned variant, at "
+        + ", ".join(f"{k} {cases[k]} ({v})" for k, v in plans.items())
+        + "; prefill with a nonzero h0")
     by_shape = {}
     for kind, shape in RG_SHAPES.items():
         a = args[kind]
         nbytes, ops = _rg_cost(*shape)
         reps = 50 if kind == "prefill" else 500
-        r = dict(shape=list(shape), bytes=nbytes, ops=ops,
+        r = dict(shape=list(shape), bytes=nbytes, ops=ops, variant=plans[kind],
                  ms=time_ms(lambda a=a: krg.rg_lru_scan(*a), reps=reps, warmup=2),
                  device_ms=device_ms(lambda a=a: krg.rg_lru_scan(*a), reps=reps),
                  plain_ms=time_ms(lambda a=a: ref.rg_lru_scan_ref(*a), reps=3 if
@@ -2923,8 +3006,9 @@ def phase_rg_lru_kernel():
                  launches=None, max_abs_err=0.0, library_ms=None, **r)
             for r in by_shape.values()]
     log("[timing] rg_lru_scan, library none; host loop / device / plain (bound): " + "; ".join(
-        f"{kind} {r['shape']} {r['ms']:.4f} / {r['device_ms']:.4f} / {r['plain_ms']:.4f} "
-        f"({r['bound_ms']:.5f} by {r['bound_by']}, {r['bound_ms'] / r['device_ms']:.1%})"
+        f"{kind} {r['shape']} {r['variant']} {r['ms']:.4f} / {r['device_ms']:.4f} / "
+        f"{r['plain_ms']:.4f} ({r['bound_ms']:.5f} by {r['bound_by']}, "
+        f"{r['bound_ms'] / r['device_ms']:.1%})"
         for kind, r in by_shape.items()))
     return rows
 
@@ -2934,7 +3018,8 @@ def phase_griffin_serve(profile: bool = False):
     recurrent, window 2048; float32 parameters, bf16 compute, random
     weights) through ``ServeEngine`` as phase 14 serves minicpm;
     ``rg_lru_scan`` must launch 18 x (1 + 31) x 2 = 1,152 times in the
-    served run. Returns the summary."""
+    served run (18 x 2 = 36 prefills, 1,116 decode steps; the wrapper counts
+    them by variant and shape, ``rg_launches_by``). Returns the summary."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
@@ -3236,18 +3321,21 @@ def phase_wkv6_bwd_kernel():
 
 def phase_rg_lru_bwd_kernel():
     """``rg_lru_scan_bwd`` equal to its plain version ``rg_lru_scan_bwd_ref``
-    in every bit on the card (and to the plain version on the CPU) at the
-    training shape (4, 512, 2560) with a nonzero dhT, the decode shape
-    (T=1), a ragged shape and T=0; host-loop and CUDA-graph times at the
-    training shape beside the plain version's and the bound. Returns the
-    kernel's row (its launches are filled in by phase 25)."""
+    in every bit on the card (and to the plain version on the CPU), through
+    the variant ``_plan`` picks, at the training shape (4, 512, 2560) with
+    a nonzero dhT (v2), the decode shape (T=1, v1), the edges of
+    ``RG_EDGES`` and the training shape one float into its buffers (v1);
+    host-loop and CUDA-graph times at the training shape beside the plain
+    version's and the bound. Returns the kernel's row, with the
+    ``variant`` timed here (its launches come from phase 25)."""
     import torch
     from repro_torch.kernels import ref, rg_lru as krg
 
     g = torch.Generator(device="cuda").manual_seed(23)
-    args = {}
-    for kind, shape in {"train": RG_TRAIN_SHAPE, "decode": RG_SHAPES["decode"],
-                        "ragged": (3, 37, 77), "empty": (2, 0, 5)}.items():
+    args, plans = {}, {}
+    cases = {"train": RG_TRAIN_SHAPE, "decode": RG_SHAPES["decode"], **RG_EDGES,
+             RG_MISALIGNED: RG_TRAIN_SHAPE}
+    for kind, shape in cases.items():
         b, t, r = shape
         a = torch.rand((b, t, r), generator=g, device="cuda")
         gated = torch.randn((b, t, r), generator=g, device="cuda")
@@ -3255,37 +3343,80 @@ def phase_rg_lru_bwd_kernel():
         y, _ = krg.rg_lru_scan(a, gated, h0)
         dy = torch.randn((b, t, r), generator=g, device="cuda")
         dht = torch.randn((b, r), generator=g, device="cuda")
-        args[kind] = x = (a, y, h0, dy, dht)
-        got = krg.rg_lru_scan_bwd(*x)
-        for name, q, want, cpu in zip(("da", "dg", "dh0"), got, ref.rg_lru_scan_bwd_ref(*x),
-                                      ref.rg_lru_scan_bwd_ref(*(v.cpu() for v in x))):
-            bad = int((words32(q) != words32(want)).sum())
-            check(bad == 0, f"rg_lru_scan_bwd {kind} {shape}: {bad} {name} words differ from "
-                            f"rg_lru_scan_bwd_ref on the card")
-            bad = int((words32(q).cpu() != words32(cpu)).sum())
-            check(bad == 0, f"rg_lru_scan_bwd {kind} {shape}: {bad} {name} words differ from "
-                            f"rg_lru_scan_bwd_ref on the CPU")
+        if kind == RG_MISALIGNED:
+            a, y, dy = (_rg_place(v, 1) for v in (a, y, dy))
+        args[kind] = (a, y, h0, dy, dht)
+        plans[kind] = _rg_hold_bits(krg.rg_lru_scan_bwd, ref.rg_lru_scan_bwd_ref, args[kind],
+                                    ("da", "dg", "dh0"), f"rg_lru_scan_bwd {kind} {shape}")
     torch.cuda.synchronize()
+    want = {"train": "v2", "decode": "v1", RG_MISALIGNED: "v1"}
+    check(all(plans[k] == v for k, v in want.items()),
+          f"rg_lru_scan_bwd: _plan chose {plans}, not {want} at those shapes")
     log(f"[rg_lru_bwd] rg_lru_scan_bwd equals rg_lru_scan_bwd_ref bit for bit (on the card and "
-        f"on the CPU) at {RG_TRAIN_SHAPE} with a nonzero dhT, {RG_SHAPES['decode']}, (3, 37, 77) "
-        f"and T=0")
+        f"on the CPU) through the planned variant, at "
+        + ", ".join(f"{k} {cases[k]} ({v})" for k, v in plans.items())
+        + "; train with a nonzero dhT")
     x = args["train"]
-    nbytes, ops = 20 * math.prod(RG_TRAIN_SHAPE) + 12 * TRAIN_B * RG_TRAIN_SHAPE[2], \
-        3 * math.prod(RG_TRAIN_SHAPE)
+    nbytes, ops = _rg_bwd_cost(*RG_TRAIN_SHAPE)
     row = dict(name="rg_lru_scan_bwd", route="cuda",
                source="src/repro_torch/kernels/csrc/rg_lru.cu",
                replaces="src/repro/models/recurrentgemma.py:114 (jax.grad of _rg_lru's "
                         "lax.scan; reference code outside Pallas, no TPU kernel)",
                shape=list(RG_TRAIN_SHAPE), launches=None, max_abs_err=0.0, library_ms=None,
-               bytes=nbytes, ops=ops,
+               bytes=nbytes, ops=ops, variant=plans["train"],
                ms=time_ms(lambda: krg.rg_lru_scan_bwd(*x), reps=50, warmup=2),
                device_ms=device_ms(lambda: krg.rg_lru_scan_bwd(*x), reps=50),
                plain_ms=time_ms(lambda: ref.rg_lru_scan_bwd_ref(*x), reps=3, warmup=1))
     _bound(row)
-    log(f"[timing] rg_lru_scan_bwd {RG_TRAIN_SHAPE}: host loop {row['ms']:.4f} ms, device "
-        f"{row['device_ms']:.4f}, plain {row['plain_ms']:.4f}, library none; bound "
-        f"{row['bound_ms']:.5f} by {row['bound_by']} ({row['bound_ms'] / row['device_ms']:.1%})")
+    log(f"[timing] rg_lru_scan_bwd {RG_TRAIN_SHAPE} {row['variant']}: host loop "
+        f"{row['ms']:.4f} ms, device {row['device_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+        f"library none; bound {row['bound_ms']:.5f} by {row['bound_by']} "
+        f"({row['bound_ms'] / row['device_ms']:.1%})")
     return row
+
+
+def fill_recurrent_launches(rg_rows, bwd_rows, summary) -> None:
+    """The launches of the kernels line's recurrent rows, each at its own
+    shape. ``rg_lru_scan`` (``rg_rows``: prefill, decode) and
+    ``rg_lru_scan_bwd`` (``bwd_rows[1]``): the launches that the wrappers
+    counted, by variant and shape, in the served run (phase 20) and the
+    trained run (phase 25, its int8 step included), at the row's shape.
+    Every such launch must have taken the row's ``variant`` (the one its
+    time was taken with), fall on a row, and add up to the runs' plain
+    counts. ``wkv6_bwd`` (``bwd_rows[0]``): phase 24's launches, its int8
+    step's included. Logs and records launches x (device ms - bound) of
+    the ``rg_lru`` rows (``rg_lru_loss_ms``)."""
+    serve, train = summary["griffin_serve"], summary["griffin_train"]
+    rg = (*rg_rows, bwd_rows[1])
+    for name in ("rg_lru_scan", "rg_lru_scan_bwd"):
+        by: dict = {}
+        for run in (serve, train):
+            for key, n in run["rg_launches_by"][name].items():
+                by[key] = by.get(key, 0) + n
+        total = (serve["launches"][name] + train["launches"][name]
+                 + train["int8_launches"][name])
+        check(sum(by.values()) == total,
+              f"{name}: {by} by variant and shape in phases 20 and 25, not the {total} counted")
+        rows = [r for r in rg if r["name"] == name]
+        for r in rows:
+            shape = "x".join(map(str, r["shape"]))
+            at = {k: n for k, n in by.items() if k.split()[1] == shape}
+            check(list(at) == [_rg_key(r["variant"], r["shape"])],
+                  f"{name} {r['shape']}: the path launched {at or 'nothing'} there, not only "
+                  f"the {r['variant']} that was timed")
+            r["launches"] = at[_rg_key(r["variant"], r["shape"])]
+        check(sum(r["launches"] for r in rows) == total,
+              f"{name}: launches {by} in phases 20 and 25 at shapes no row has")
+    rwkv = summary["rwkv_train"]
+    bwd_rows[0]["launches"] = (rwkv["launches"]["wkv6_bwd"]
+                               + rwkv["int8_launches"]["wkv6_bwd"])
+    summary["rg_lru_loss_ms"] = {f"{r['name']} {r['shape']}":
+                                 r["launches"] * (r["device_ms"] - r["bound_ms"]) for r in rg}
+    log("[recurrent] rg_lru launches x (device ms - bound) in this run: " + "; ".join(
+        f"{k}: {v:.4f} ms" for k, v in summary["rg_lru_loss_ms"].items())
+        + f"; {sum(summary['rg_lru_loss_ms'].values()):.4f} ms in all ("
+        + ", ".join(f"{r['name']} {r['shape']} {r['launches']} launches, {r['variant']}"
+                    for r in rg) + ")")
 
 
 def _recurrent_train(tag: str, cfg, per_step: dict, n_params: int) -> dict:
@@ -3294,7 +3425,9 @@ def _recurrent_train(tag: str, cfg, per_step: dict, n_params: int) -> dict:
     B=4, S=512 on one repeated ``synth_batch``; loss and grad norm finite,
     the last loss below the first; each kernel's launches a step equal to
     ``per_step`` (and no kernel of the kNN paths launched); then one step
-    with int8 moments from a fresh state. Returns the summary."""
+    with int8 moments from a fresh state, with the same launches
+    (``int8_launches``). Returns the summary (``rg_launches_by``: the
+    RG-LRU launches of all seven steps by variant and shape)."""
     import torch
     from repro_torch.launch.train import synth_batch
     from repro_torch.models import get_model
@@ -3356,6 +3489,10 @@ def _recurrent_train(tag: str, cfg, per_step: dict, n_params: int) -> dict:
     params, opt8, m8 = make_train_step(model, cfg, tcfg8)(params, opt8, batch)
     torch.cuda.synchronize()
     s8 = time.perf_counter() - t0
+    launches8 = {k: v - launches[k] for k, v in _all_launches().items()}
+    rg_by = _rg_launches_by()
+    check(launches8 == {k: per_step.get(k, 0) for k in launches8},
+          f"{cfg.name} int8-moment step launches {launches8}, not {per_step}")
     peak8 = torch.cuda.max_memory_allocated() / 2**30
     check(math.isfinite(float(m8["loss"])) and math.isfinite(float(m8["grad_norm"])),
           f"{cfg.name}: the int8-moment step's loss or grad norm is not finite")
@@ -3367,7 +3504,8 @@ def _recurrent_train(tag: str, cfg, per_step: dict, n_params: int) -> dict:
     return {"params": count, "losses": losses, "grad_norms": gnorms, "step_s": step_s,
             "step_s_median": med, "tokens_per_s": tokens / med,
             "tflops_6nd": flops / med / 1e12, "peak_gib": peak, "launches": launches,
-            "int8_step_s": s8, "int8_loss": float(m8["loss"]), "int8_peak_gib": peak8}
+            "int8_step_s": s8, "int8_loss": float(m8["loss"]), "int8_peak_gib": peak8,
+            "int8_launches": launches8, "rg_launches_by": rg_by}
 
 
 def phase_rwkv_train():
@@ -3753,8 +3891,6 @@ def main(argv=None) -> int:
     summary["moe_train"] = timed("moe_train", phase_moe_train)
     rg_rows = timed("rg_lru", phase_rg_lru_kernel)
     summary["griffin_serve"] = timed("griffin_serve", phase_griffin_serve)
-    for r in rg_rows:
-        r["launches"] = summary["griffin_serve"]["launches"]["rg_lru_scan"]
     rows += rg_rows
     summary["moe_griffin_agree"] = timed("moe_griffin_agree", phase_moe_griffin_cpu_agreement)
     log(f"[moe] phases 17-21 took {phase_s['moe_serve']} / {phase_s['moe_train']} / "
@@ -3764,8 +3900,7 @@ def main(argv=None) -> int:
                 timed("rg_lru_bwd", phase_rg_lru_bwd_kernel)]
     summary["rwkv_train"] = timed("rwkv_train", phase_rwkv_train)
     summary["griffin_train"] = timed("griffin_train", phase_griffin_train)
-    for r, phase in zip(bwd_rows, ("rwkv_train", "griffin_train")):
-        r["launches"] = summary[phase]["launches"][r["name"]]
+    fill_recurrent_launches(rg_rows, bwd_rows, summary)
     rows += bwd_rows
     summary["recurrent_agree"] = timed("recurrent_agree", phase_recurrent_cpu_agreement)
     log(f"[recurrent] phases 22-26 took {phase_s['wkv6_bwd']} / {phase_s['rg_lru_bwd']} / "

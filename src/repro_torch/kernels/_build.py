@@ -133,10 +133,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.dtw_band_v2_f32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.dtw_band_v2_f32.restype = _I
     elif name == "rg_lru":
-        lib.rg_lru_scan_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-        lib.rg_lru_scan_f32.restype = _I
-        lib.rg_lru_scan_bwd_f32.argtypes = [_P] * 8 + [_I] * 3 + [_P]
-        lib.rg_lru_scan_bwd_f32.restype = _I
+        for fn in (lib.rg_lru_scan_f32, lib.rg_lru_scan_v2_f32):
+            fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+            fn.restype = _I
+        for fn in (lib.rg_lru_scan_bwd_f32, lib.rg_lru_scan_bwd_v2_f32):
+            fn.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+            fn.restype = _I
 
 
 def check(err: int, what: str) -> None:

@@ -36,9 +36,12 @@ def resolve_kernel_mode(mode: str, device: torch.device) -> str:
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, under one lock shared by every
-    kernel wrapper: shard threads launch the same kernels at once, and a
-    bare ``+=`` (read, add, store) can lose a count between threads."""
+def count_launch(wrapper, key=None) -> None:
+    """Add one to ``wrapper.launches`` (and, with a ``key``, to
+    ``wrapper.launches_by[key]``), under one lock shared by every kernel
+    wrapper: shard threads launch the same kernels at once, and a bare
+    ``+=`` (read, add, store) can lose a count between threads."""
     with _LAUNCH_LOCK:
         wrapper.launches += 1
+        if key is not None:
+            wrapper.launches_by[key] += 1

@@ -32,7 +32,8 @@ the bf16 output, rounded from float32 sums in another order, holds the
 bfloat16 tolerance; and bit for bit ``wkv6_fma_ref`` (NaNs compared as one
 word: the card's fmaf and the reference's float64 give NaNs other payloads).
 ``rg_lru_scan``: bit for bit ``rg_lru_scan_ref`` (a rounded multiply, then
-a rounded add, a step), on the card and on the CPU, and so is
+a rounded add, a step), on the card and on the CPU, through the variant
+(v1, v2) that the plan picks from the case's shape and alignment, and so is
 ``rg_lru_scan_bwd`` to ``rg_lru_scan_bwd_ref``; ``wkv6_bwd``: float32
 gradients within 1e-5 of each tensor's largest magnitude of
 ``wkv6_bwd_ref`` (sums in another order), bf16 ones within 8e-3 of it (a
@@ -943,23 +944,57 @@ def test_train_step_on_the_card_equals_cpu(cuda, moments):
     assert np.isfinite(float(metrics["loss"])) and int(sg["step"]) == 2
 
 
-@pytest.mark.parametrize("b,t,r", [(4, 512, 2560), (4, 1, 2560), (3, 37, 77), (1, 9, 1),
-                                   (2, 0, 5)])
-def test_rg_lru_scan_kernel_equals_plain_bitwise(cuda, b, t, r):
-    """The Griffin path's prefill and decode shapes, ragged shapes (a
-    partial block, a chunk tail) and T=0: y and hT equal the plain version
-    in every bit, on the card and on the CPU."""
+# (B, T, R, floats the (B, T, R) operands sit into their buffers): the
+# Griffin path's prefill / training and decode shapes, ragged shapes, T=0,
+# v2's tile tail, R % 32 != 0, R % 4 != 0 (v1), B * R under one block, and
+# the path's shape as a view one float in (not 16-byte aligned: v1)
+RG_CASES = [(4, 512, 2560, 0), (4, 1, 2560, 0), (3, 37, 77, 0), (1, 9, 1, 0), (2, 0, 5, 0),
+            (4, 515, 2560, 0), (2, 100, 36, 0), (2, 100, 37, 0), (1, 64, 8, 0),
+            (4, 512, 2560, 1)]
+
+
+def offset_view(x, offset):
+    """``x`` as a contiguous view ``offset`` floats into a new buffer."""
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:] = x.reshape(-1)
+    return buf[offset:].view(x.shape)
+
+
+# the cases that the plan sends to v2 (aligned, R % 4 == 0, T >= V2_MIN_STEPS)
+RG_V2 = {(4, 512, 2560, 0), (4, 515, 2560, 0), (2, 100, 36, 0), (1, 64, 8, 0)}
+
+
+def rg_launch_once(wrapper, b, t, r, offset, call):
+    """``call()``, which must launch ``wrapper``'s kernel once (none at
+    T=0), the variant the plan picks for the case."""
+    planned = "v2" if (b, t, r, offset) in RG_V2 else "v1"
+    assert krg._plan(t, r, offset == 0) == planned
+    before, by = wrapper.launches, wrapper.launches_by[(planned, (b, t, r))]
+    got = call()
+    assert wrapper.launches == before + (1 if t else 0)
+    assert wrapper.launches_by[(planned, (b, t, r))] == by + (1 if t else 0)
+    return got
+
+
+@pytest.mark.parametrize("b,t,r,offset", RG_CASES)
+def test_rg_lru_scan_kernel_equals_plain_bitwise(cuda, b, t, r, offset):
+    """y and hT equal the plain version in every bit, on the card and on the
+    CPU, through ``ops.rg_lru_scan``: the plan's variant (v2 at the cases of
+    ``RG_V2``, v1 at the rest), one launch a call, none at T=0."""
     rng = np.random.default_rng(31)
     a = torch.from_numpy(rng.uniform(0.0, 1.0, (b, t, r)).astype(np.float32))
     g = randn(32, b, t, r)
     h0 = randn(33, b, r)
-    before = krg.rg_lru_scan.launches
-    got = tops.rg_lru_scan(a.to(cuda), g.to(cuda), h0.to(cuda))
-    assert krg.rg_lru_scan.launches == before + (1 if t else 0)
-    for x, want, cpu in zip(got, tref.rg_lru_scan_ref(a.to(cuda), g.to(cuda), h0.to(cuda)),
-                            tref.rg_lru_scan_ref(a, g, h0)):
-        assert torch.equal(x.view(torch.int32), want.view(torch.int32))
-        assert torch.equal(x.cpu().view(torch.int32), cpu.view(torch.int32))
+    ac, gc = offset_view(a.to(cuda), offset), offset_view(g.to(cuda), offset)
+    want = tref.rg_lru_scan_ref(ac, gc, h0.to(cuda))
+    cpu = tref.rg_lru_scan_ref(a, g, h0)
+    got = rg_launch_once(krg.rg_lru_scan, b, t, r, offset,
+                         lambda: tops.rg_lru_scan(ac, gc, h0.to(cuda)))
+    for x, w, c in zip(got, want, cpu):
+        assert torch.equal(x.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(x.cpu().view(torch.int32), c.view(torch.int32))
 
 
 def test_rg_lru_scan_kernel_refuses_what_it_cannot_take(cuda):
@@ -979,25 +1014,25 @@ def test_rg_lru_scan_kernel_refuses_what_it_cannot_take(cuda):
         krg.rg_lru_scan_bwd(a, y, h0, g, h0[:1])
 
 
-@pytest.mark.parametrize("b,t,r", [(4, 512, 2560), (4, 1, 2560), (3, 37, 77), (1, 9, 1),
-                                   (2, 0, 5)])
-def test_rg_lru_scan_bwd_kernel_equals_plain_bitwise(cuda, b, t, r):
-    """The scan's gradient at the training and decode shapes, ragged shapes
-    and T=0: da, dg and dh0 equal ``rg_lru_scan_bwd_ref`` in every bit, on
-    the card and on the CPU; one launch a call (none at T=0)."""
+@pytest.mark.parametrize("b,t,r,offset", RG_CASES)
+def test_rg_lru_scan_bwd_kernel_equals_plain_bitwise(cuda, b, t, r, offset):
+    """The scan's gradient at the cases of the forward: da, dg and dh0
+    equal ``rg_lru_scan_bwd_ref`` in every bit, on the card and on the CPU,
+    through the plan's variant; one launch a call (none at T=0)."""
     rng = np.random.default_rng(41)
     a = torch.from_numpy(rng.uniform(0.0, 1.0, (b, t, r)).astype(np.float32)).to(cuda)
     h0 = randn(42, b, r).to(cuda)
     y, _ = krg.rg_lru_scan(a, randn(43, b, t, r).to(cuda), h0)
     dy, dht = randn(44, b, t, r).to(cuda), randn(45, b, r).to(cuda)
-    before = krg.rg_lru_scan_bwd.launches
-    got = krg.rg_lru_scan_bwd(a, y, h0, dy, dht)
-    assert krg.rg_lru_scan_bwd.launches == before + (1 if t else 0)
+    a, y, dy = (offset_view(x, offset) for x in (a, y, dy))
     args = (a, y, h0, dy, dht)
-    for x, want, cpu in zip(got, tref.rg_lru_scan_bwd_ref(*args),
-                            tref.rg_lru_scan_bwd_ref(*(v.cpu() for v in args))):
-        assert torch.equal(x.view(torch.int32), want.view(torch.int32))
-        assert torch.equal(x.cpu().view(torch.int32), cpu.view(torch.int32))
+    want = tref.rg_lru_scan_bwd_ref(*args)
+    cpu = tref.rg_lru_scan_bwd_ref(*(v.cpu() for v in args))
+    got = rg_launch_once(krg.rg_lru_scan_bwd, b, t, r, offset,
+                         lambda: krg.rg_lru_scan_bwd(*args))
+    for x, w, c in zip(got, want, cpu):
+        assert torch.equal(x.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(x.cpu().view(torch.int32), c.view(torch.int32))
 
 
 def _wkv_grad_args(seed, b, t, h, dk, dv, dtype, cuda, step3=True):

@@ -2,7 +2,7 @@
 """Hold an older build of one of the port's CUDA sources against this
 checkout's on one CUDA card.
 
-    python3 tools/kernel_ab.py --kernel ed|lb_sax|wkv6|wkv6_bwd --baseline OLD.cu \
+    python3 tools/kernel_ab.py --kernel ed|lb_sax|wkv6|wkv6_bwd|rg_lru --baseline OLD.cu \
         [--trial LABEL=WORDS ...] [--baseline-trial LABEL=WORDS ...] [--out FILE]
     python3 tools/kernel_ab.py --kernel dtw [--out FILE]
 
@@ -128,6 +128,35 @@ checkout's ``csrc/dtw.cu`` for wide bands, so both are launched by
    against its lanes: where the two meet sets ``kernels/dtw.py``'s
    ``LANE_PAIRS``. Each row names the kernel ``_plan`` picks there.
 
+``--kernel rg_lru`` (``rg_lru_scan`` and ``rg_lru_scan_bwd``, one source).
+The baseline is an older ``rg_lru.cu`` whose C entry points are v1's (the
+parent commit's: ``git show HEAD~1:src/repro_torch/kernels/csrc/rg_lru.cu >
+build/ab/rg_lru_v1.cu``), launched as v1 by the package's private launch
+helpers (``kernels/rg_lru.py::_launch_scan``, ``_launch_scan_bwd``, which
+the wrappers call with ``_plan``'s choice); the checkout's build (``v2``)
+and its trials (``kSteps=16``, ``kStages=3``, ``kBwdStages=4``) go through
+the wrappers, so through ``_plan``.
+
+1. Bits: every build's forward (y, hT) and gradient (da, dg, dh0), and the
+   checkout's v1 and v2 through the launch helpers where they apply, equal
+   ``rg_lru_scan_ref``
+   and ``rg_lru_scan_bwd_ref`` as int32 words, at every shape of
+   ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` phases 19 and 23
+   (prefill and decode, a tile tail at T = 515, R = 36, 37, 77, 8 and 1,
+   T = 0) and more edges, on contiguous operands and on views one float in
+   (not 16-byte aligned: the plan takes v1).
+2. Times of both kernels at the prefill (4, 512, 2560), decode (4, 1,
+   2560) and a ragged (4, 515, 2563) shape, the builds in turns, by both
+   yardsticks as for ``ed``, each with the bound (``chip_smoke.py``'s),
+   its share and the TB/s reached: "hot" relaunches one operand set (as
+   ``chip_smoke.py``'s CUDA graph does), "stream" walks ~150 MB of sets
+   in turn, so that L2 holds none of a call's operands (not at the ragged
+   shape); beside the forward, ``torch.add(a, g, out=y)``, the same bytes
+   without the chain, as a yardstick of what the card streams at that
+   mix. Then the checkout's v1 against its v2 at (4, T, 2560) for T in
+   1 .. 256, hot and streamed: where they meet sets
+   ``kernels/rg_lru.py``'s ``V2_MIN_STEPS``.
+
 Prints one line per timed case and a JSON line; ``--out`` also writes the
 JSON there. Exits 1 if any bit differs (2 without a card); a failed ED
 witness ends the run as ``chip_smoke.py``'s checks do.
@@ -139,6 +168,7 @@ import contextlib
 import ctypes
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -895,10 +925,181 @@ def dtw_timings() -> list:
     return rows
 
 
+RG_MAIN = {"prefill": (4, 512, 2560), "decode": (4, 1, 2560), "ragged": (4, 515, 2563)}
+RG_CASES = [(4, 512, 2560), (4, 1, 2560), (3, 37, 77), (1, 9, 1), (2, 0, 5), (4, 515, 2560),
+            (2, 100, 36), (2, 100, 37), (1, 64, 8), (1, 31, 4), (2, 32, 32), (2, 33, 64),
+            (3, 67, 100), (1, 1, 4), (2, 16, 2560), (2, 15, 2560), (4, 515, 2563)]
+RG_SWEEP = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def load_rg_baseline(src: Path, workdir: Path):
+    """Compile an older ``rg_lru.cu`` (v1's C entry points, no v2) and
+    declare its two entry points; the package's launch helpers launch it as
+    v1."""
+    loaded = compile_text("rg_lru", src.read_text(), workdir, "baseline")
+    for fn, n in ((loaded.rg_lru_scan_f32, 5), (loaded.rg_lru_scan_bwd_f32, 8)):
+        fn.argtypes = [ctypes.c_void_p] * n + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return loaded
+
+
+def rg_inputs(g, shape, offset: int = 0):
+    """The forward's (a, g, h0) and the gradient's (a, y, h0, dy, dhT) at
+    ``shape`` from ``g``, the (B, T, R) operands ``offset`` floats in."""
+    import torch
+    from repro_torch.kernels import ref
+    b, t, r = shape
+    a = torch.rand((b, t, r), generator=g, device="cuda")
+    gate = torch.randn((b, t, r), generator=g, device="cuda")
+    h0 = torch.randn((b, r), generator=g, device="cuda")
+    y, _ = ref.rg_lru_scan_ref(a, gate, h0)
+    dy = torch.randn((b, t, r), generator=g, device="cuda")
+    dht = torch.randn((b, r), generator=g, device="cuda")
+    if offset:
+        a, gate, y, dy = (cs._rg_place(x, offset) for x in (a, gate, y, dy))
+    return (a, gate, h0), (a, y, h0, dy, dht)
+
+
+def rg_runs(builds: dict, fwd: bool, x, variants: bool):
+    """label -> the call of each build (``builds``: label -> (lib, "v1" for
+    the launch helper's v1, or None for the wrapper and its plan)); with
+    ``variants`` the checkout's v1 and v2 through the launch helper too,
+    where they apply. ``x`` is contiguous, as the helpers take it."""
+    from repro_torch.kernels import rg_lru as krg
+    fn = krg.rg_lru_scan if fwd else krg.rg_lru_scan_bwd
+    launch = krg._launch_scan if fwd else krg._launch_scan_bwd
+    calls = {}
+    for label, (lib, kind) in builds.items():
+        calls[label] = (lib, (lambda: fn(*x)) if kind is None
+                        else (lambda k=kind: launch(k, *x)))
+    if variants:
+        takes_v2 = x[0].shape[2] % 4 == 0 and krg._aligned(*(o for o in x if o.ndim == 3))
+        for v in ("v1", "v2") if takes_v2 else ("v1",):
+            calls[f"own {v}"] = (None, lambda v=v: launch(v, *x))
+    return calls
+
+
+def check_rg_bits(builds: dict) -> list:
+    """Every build's forward and gradient (and the checkout's v1 and v2
+    through the launch helpers) against ``rg_lru_scan_ref`` and ``rg_lru_scan_bwd_ref`` as int32
+    words, at every shape of the tests and ``chip_smoke.py``, contiguous and
+    one float in; returns the differing cases."""
+    import torch
+    from repro_torch.kernels import ref, rg_lru as krg
+    g = torch.Generator(device="cuda").manual_seed(28)
+    bad, count, plans = [], 0, {"v1": 0, "v2": 0}
+    for shape, offset in itertools.product(RG_CASES, (0, 1)):
+        fx, bx = rg_inputs(g, shape, offset)
+        for fwd, x, want in ((True, fx, ref.rg_lru_scan_ref(*fx)),
+                             (False, bx, ref.rg_lru_scan_bwd_ref(*bx))):
+            plans[krg._plan(shape[1], shape[2], offset == 0)] += 1
+            for label, (lib, call) in rg_runs(builds, fwd, x, True).items():
+                with using("rg_lru", lib):
+                    got = call()
+                for part, p, q in zip(("y", "hT") if fwd else ("da", "dg", "dh0"), got, want):
+                    count += 1
+                    if not torch.equal(p.view(torch.int32), q.view(torch.int32)):
+                        bad.append(f"{label}: {part} {shape} +{offset}")
+    torch.cuda.synchronize()
+    print(f"[bits] {count} comparisons ({plans['v1']} calls planned v1, {plans['v2']} v2): "
+          f"{len(bad)} differ {bad[:10] if bad else ''}", flush=True)
+    return bad
+
+
+def rg_cost(shape, fwd: bool) -> tuple[int, int]:
+    """(bytes, operations) of a call: ``chip_smoke.py``'s."""
+    return (cs._rg_cost if fwd else cs._rg_bwd_cost)(*shape)
+
+
+def rg_in_turns(kname: str, shape, mode: str, calls: dict, reps: int, nbytes: int,
+                ops: int) -> dict:
+    """Each call timed in turns, forward then back, by the host loop and a
+    CUDA graph; the row with the bound, each call's share of it and the
+    bytes a second it reaches (by the graph), printed."""
+    from repro_torch.kernels import rg_lru as krg
+    runs: dict = {label: [] for label in calls}
+    for label in [*calls, *reversed(calls)]:
+        lib, fn = calls[label]
+        with using("rg_lru", lib):
+            runs[label].append((cs.time_ms(fn, reps, warmup=2), cs.device_ms(fn, reps)))
+    bound = 1e3 * max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.FP32_FLOPS)
+    row = turns_row(kname, shape, mode, reps, bound, runs)
+    row.update(bytes=nbytes, ops=ops, plan=krg._plan(shape[1], shape[2], True),
+               tb_per_s={k: nbytes / v / 1e9 for k, v in row["device_ms"].items()})
+    print(f"[rate] {kname} {'x'.join(map(str, shape))} {mode}: _plan {row['plan']}; TB/s "
+          + "; ".join(f"{k} {v:.3f}" for k, v in row["tb_per_s"].items()), flush=True)
+    return row
+
+
+def rg_sets(g, shape, n: int) -> tuple[list, list]:
+    """``n`` operand sets at ``shape``: the forward's args of each, and the
+    gradient's, as batch slices of one allocation (every slice 16-byte
+    aligned)."""
+    b = shape[0]
+    fx, bx = rg_inputs(g, (n * b, *shape[1:]))
+    return [tuple(x[i * b:(i + 1) * b] for x in fx) for i in range(n)], \
+        [tuple(x[i * b:(i + 1) * b] for x in bx) for i in range(n)]
+
+
+def rg_hot_stream(kname: str, shape, builds: dict, sets, reps: int, variants: bool) -> list:
+    """The "hot" row (the first set, relaunched) and the "stream" row (the
+    sets in turn, ``reps`` of them at least: operands that L2 does not hold)
+    of one kernel."""
+    import torch
+    fwd = kname == "rg_lru_scan"
+    cost = rg_cost(shape, fwd)
+    per_set = [rg_runs(builds, fwd, x, variants) for x in sets]
+    if fwd and builds:
+        for calls, x in zip(per_set, sets):     # the same bytes, no chain: a yardstick
+            out = torch.empty_like(x[0])
+            calls["torch.add"] = (None, lambda x=x, out=out: torch.add(x[0], x[1], out=out))
+    rows = [rg_in_turns(kname, shape, "hot", per_set[0], reps, *cost)]
+    if len(per_set) > 1:
+        stream = {label: (lib, cycle_calls([p[label][1] for p in per_set]))
+                  for label, (lib, _) in per_set[0].items()}
+        rows.append(rg_in_turns(kname, shape, "stream", stream, max(reps, len(sets)), *cost))
+    return rows
+
+
+def rg_timings(builds: dict) -> list:
+    """Both kernels at the main shapes, every build in turns ("hot": one
+    set of operands relaunched, as the CUDA-graph yardstick of
+    ``chip_smoke.py`` has it; "stream": operand sets in turn, ~150 MB of
+    them, so that L2 holds none of a call's operands), and the T sweep of
+    the checkout's v1 against its v2, both ways (where they meet sets
+    ``_plan``'s ``V2_MIN_STEPS``)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(29)
+    rows = []
+
+    def sets_of(shape):
+        return rg_sets(g, shape, max(1, -(-150_000_000 // (12 * math.prod(shape)))))
+
+    for kind, shape in RG_MAIN.items():
+        fsets, bsets = sets_of(shape) if kind != "ragged" else rg_sets(g, shape, 1)
+        reps = 48 if shape[1] > 1 else 500
+        rows += rg_hot_stream("rg_lru_scan", shape, builds, fsets, reps, False)
+        rows += rg_hot_stream("rg_lru_scan_bwd", shape, builds, bsets, reps, False)
+        del fsets, bsets
+    for t in RG_SWEEP:
+        shape = (4, t, 2560)
+        fsets, bsets = sets_of(shape)
+        rows += rg_hot_stream("rg_lru_scan", shape, {}, fsets, 200, True)
+        rows += rg_hot_stream("rg_lru_scan_bwd", shape, {}, bsets, 200, True)
+        del fsets, bsets
+    return rows
+
+
+def cycle_calls(fns):
+    """A call that runs the next of ``fns`` each time, in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", required=True,
-                    choices=("ed", "lb_sax", "wkv6", "wkv6_bwd", "dtw"),
+                    choices=("ed", "lb_sax", "wkv6", "wkv6_bwd", "dtw", "rg_lru"),
                     help="which source under src/repro_torch/kernels/csrc to compare")
     ap.add_argument("--baseline", default=None,
                     help="an older <kernel>.cu with the same C entry points (not for dtw, "
@@ -913,7 +1114,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if (args.kernel == "dtw") != (args.baseline is None) or (args.kernel == "dtw"
                                                               and args.trial):
-        ap.error("--baseline (and --trial) go with --kernel ed|lb_sax|wkv6|wkv6_bwd, not dtw")
+        ap.error("--baseline (and --trial) go with --kernel ed|lb_sax|wkv6|wkv6_bwd|rg_lru, "
+                 "not dtw")
     if args.baseline_trial and args.kernel != "wkv6_bwd":
         ap.error("--baseline-trial goes with --kernel wkv6_bwd")
 
@@ -941,12 +1143,20 @@ def main(argv=None) -> int:
 
 
 def compare_builds(args) -> tuple[list, list]:
-    """The bits and times of ``--kernel ed|lb_sax|wkv6``: the baseline's build
-    against the checkout's (and each trial's)."""
+    """The bits and times of ``--kernel ed|lb_sax|wkv6|rg_lru``: the baseline's
+    build against the checkout's (and each trial's)."""
     with tempfile.TemporaryDirectory(prefix="kernel-ab-") as tmp:
         from repro_torch.kernels import _build
         if args.kernel == "wkv6_bwd":
             return compare_bwd_builds(args, Path(tmp))
+        if args.kernel == "rg_lru":
+            builds = {"v1": (load_rg_baseline(Path(args.baseline).resolve(), Path(tmp)), "v1"),
+                      "v2": (None, None)}
+            for trial in args.trial:
+                label, _, words = trial.partition("=")
+                builds[label] = (load_baseline("rg_lru", _build.CSRC / "rg_lru.cu", Path(tmp),
+                                               label, words), None)
+            return check_rg_bits(builds), rg_timings(builds)
         builds = {"v1": load_baseline(args.kernel, Path(args.baseline).resolve(), Path(tmp)),
                   "v2": None}
         for trial in args.trial:
