@@ -123,23 +123,24 @@ Phases (any failure ends the run with a non-zero exit):
    T=512, H=64, K=V=64) with a nonzero state, the decode shape (T=1), bf16
    r/k/v as served and float32, the extreme decays and the
    overflow-then-reset case; host-loop and CUDA-graph times at both shapes;
-12. LM serving at full width: ``rwkv6-7b`` (16 of its 32 layers, d_model 4096,
+12. LM serving at full width: ``rwkv6-7b`` (8 of its 32 layers, d_model 4096,
    bf16 compute, float32 parameters) with random weights from a seed, 8
    requests of 512-token prompts through ``ServeEngine`` in two waves of 4,
-   32 new tokens each; ``wkv6`` must launch 16 x (1 + 31) x 2 = 1,024
+   32 new tokens each; ``wkv6`` must launch 8 x (1 + 31) x 2 = 512
    times in that run; logits finite; the waves replayed step by step give
    the engine's tokens; served again in float32 with the same weights, each
    first token equals the request's solo run wherever its top-2 margin
    exceeds twice the float32 logit tolerance;
 13. the card against the CPU at full width and 2 layers in float32: a
    64-token prefill and 4 decode steps, logits within 1e-4, equal tokens;
-14. dense LM serving at full width: ``minicpm-2b`` (all 40 layers, d_model
-   2304, vocab 122,753, bf16 compute, float32 parameters, ~3.0 B
-   parameters) with random weights from a seed, 8 requests of 512-token
+14. dense LM serving at full width: ``minicpm-2b`` (20 of its 40 layers
+   for the run's time, d_model 2304, vocab 122,753, bf16 compute, float32
+   parameters, ~1.8 B parameters) with random weights from a seed, 8 requests of 512-token
    prompts through ``ServeEngine`` in two waves of 4, 32 new tokens each;
    logits finite; the waves replayed step by step give the engine's
    tokens; prefill ms a wave, decode ms a step, tok/s and peak memory;
-15. training at full width: the same model, 6 steps of ``make_train_step``
+15. training at full width and depth (all 40 layers, ~3.0 B parameters):
+   6 steps of ``make_train_step``
    (AdamW with minicpm's WSD schedule at 3e-4 from the first step, float32
    moments, remat) at B=4, S=512 on one repeated ``synth_batch``; loss and
    grad norm finite, the last loss below the first; step time, tokens/s,
@@ -151,9 +152,10 @@ Phases (any failure ends the run with a non-zero exit):
    checkpoint written on the card and reloaded, training on within 1e-6 of
    an uninterrupted run; ``examples/torch_retrieval_lm.py``'s path on the
    card, exact against brute force, ``lb_sax_matrix`` launched;
-17. mixture-of-experts serving at full width and depth, as phase 14 serves:
-   ``granite-moe-1b-a400m`` (24 layers, 32 experts top-8, float32
-   parameters) and ``moonshot-v1-16b-a3b`` (48 layers, 64 experts top-6,
+17. mixture-of-experts serving at full width, as phase 14 serves:
+   ``granite-moe-1b-a400m`` (12 of its 24 layers for the run's time, 32
+   experts top-8, float32 parameters) and ``moonshot-v1-16b-a3b`` (all 48
+   layers, 64 experts top-6,
    28.06 B parameters held as a bf16 serving tree, 56.1 GB; peak under 80
    GB); capacities 168 and 64 at S=512, 8 at decode; no kernel of the port
    launches (experts, routing and combine are torch ops);
@@ -206,7 +208,30 @@ Phases (any failure ends the run with a non-zero exit):
    rwkv6's largest gap printed beside v1's 7.736e-05);
    recurrentgemma's smoke config: AdamW on the same gradients within 1e-6
    (moments a list of layers) and a checkpoint (blocks as a list) resumed
-   on the card within 1e-6.
+   on the card within 1e-6;
+27. ``whisper-large-v3`` served at its published width and depth (32
+   encoder and 32 decoder layers, d 1280, 20 heads, vocab 51,866, 1,500
+   frames, bf16 compute, 1,535,219,200 float32 parameters made on the card
+   from seed 0; ``param_count()`` counts the tied head twice and no norm or
+   MLP bias): 8 requests, each with 1,500 random frames and a 128-token
+   prompt, through ``ServeEngine`` in two waves of 4, 32 new tokens each;
+   no kernel of the port launches; the waves replayed step by step give
+   the engine's tokens, every logit finite; tok/s, prefill ms a wave
+   (encoder included), decode ms a step, peak memory;
+28. whisper trained from phase 27's parameters: 6 steps at B=4, 1,500
+   frames, S=448 (remat, AdamW at minicpm's WSD rate from the first step,
+   float32 moments), batch t ``synth_batch(0, t)`` drawn on the host and
+   staged on the card by ``DoubleBufferedLoader``, each staged batch equal
+   to the direct draw; losses and grad norms finite, the cross-entropy of
+   a held-out batch lower after the six steps than before; one int8-moment
+   step; s a step, decoder tokens/s, TFLOP/s by the 6*N*D of
+   ``_whisper_flops`` (encoder and cross K/V over the frames, the rest
+   over the tokens), peak memory; a smoke checkpoint (``enc``/``dec``
+   stacked) resumed on the card within 1e-6;
+29. the card against the CPU at whisper's smoke config in float32:
+   logits, the train step's metrics, each gradient within 1e-4 of its
+   tensor's largest magnitude, and 8 greedy decode steps after a prefill
+   with frames, logits within 1e-4 and tokens equal.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
 ``device_ms``, a CUDA graph's time; two ``dtw_band`` rows from phase 7b,
@@ -2090,10 +2115,25 @@ def phase_cpu_agreement():
 # ---------------------------------------------------------------------------
 
 LM_REQUESTS, LM_PROMPT, LM_NEW, LM_SLOTS = 8, 512, 32, 4
-# phase 12 serves 16 of rwkv6-7b's 32 layers, at full width: with phases
-# 22-26 the whole run came within 60 s of its 1,200 s limit, and serving
-# depth is the first thing ROADMAP.md allows to be cut
-LM_SERVE_LAYERS = 16
+# The depth each LM is served at where it is cut, at full width, for the
+# run's time; serving depth is the first thing ROADMAP.md allows to be cut.
+# rwkv6-7b (phase 12) went to 16 of 32 layers when phases 22-26 brought the
+# run within 60 s of its 1,200 s limit, then to 8, with minicpm-2b (phase
+# 14) at 20 of 40 and granite-moe-1b-a400m (phase 17) at 12 of 24, when
+# phases 27-29 took it past 1,080 s. Their training phases keep every layer.
+SERVE_DEPTH = {"rwkv6-7b": 8, "minicpm-2b": 20, "granite-moe-1b-a400m": 12}
+
+
+def _served(cfg):
+    """``cfg`` at the depth it is served at (``SERVE_DEPTH``)."""
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=SERVE_DEPTH.get(cfg.name, cfg.num_layers))
+
+
+# the warm-up request before each timed serving run (cuBLAS set-up, the
+# weights' compute-dtype copies) decodes this many tokens: a prefill and a
+# decode step see every shape the timed run does
+WARM_NEW = 2
 # A wave and a request alone run other matmul shapes, so their bf16
 # activations round differently, and 32 layers of random weights amplify
 # that: bf16 first-token logits of a wave and of its requests alone differ
@@ -2288,7 +2328,7 @@ def _first_tokens_vs_solo(model, cfg, params, toks, served):
 
 
 def phase_lm_serve(profile: bool = False):
-    """rwkv6-7b at full width, LM_SERVE_LAYERS of its 32 layers, through
+    """rwkv6-7b at full width, SERVE_DEPTH of its 32 layers, through
     ``ServeEngine``. Returns the ``wkv6`` launches of the served run and a
     summary."""
     import dataclasses
@@ -2299,7 +2339,7 @@ def phase_lm_serve(profile: bool = False):
     from repro_torch.models import get_model
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=LM_SERVE_LAYERS)
+    cfg = _served(get_config("rwkv6-7b"))
     model = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2312,11 +2352,12 @@ def phase_lm_serve(profile: bool = False):
         f"({n_params * 4 / 2**30:.2f} GiB) made on the card in "
         f"{time.perf_counter() - t0:.2f}s")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
-    eng = ServeEngine(model, cfg, params,
-                      ServeConfig(max_seq=LM_PROMPT + LM_NEW + 8, batch_slots=LM_SLOTS,
-                                  max_new_tokens=LM_NEW))
-    eng.submit(prompts[0, :16])          # warm-up: cuBLAS set-up, the bf16 weight copies
-    eng.run()
+    scfg = ServeConfig(max_seq=LM_PROMPT + LM_NEW + 8, batch_slots=LM_SLOTS,
+                       max_new_tokens=LM_NEW)
+    warm = ServeEngine(model, cfg, params, dataclasses.replace(scfg, max_new_tokens=WARM_NEW))
+    warm.submit(prompts[0, :16])
+    warm.run()
+    eng = ServeEngine(model, cfg, params, scfg)
     rids = [eng.submit(p) for p in prompts]
     reset_counters()
     torch.cuda.synchronize()
@@ -2482,27 +2523,34 @@ def _init_on_card(tag: str, cfg, model, serving: bool = False):
     return params, n_params
 
 
-def _serve_lm(tag: str, cfg, model, params, want: dict, profile: bool = False) -> dict:
-    """LM_REQUESTS random LM_PROMPT-token prompts (seed 0) through
+def _serve_lm(tag: str, cfg, model, params, want: dict, profile: bool = False,
+              prompt: int = LM_PROMPT, extras: list | None = None) -> dict:
+    """LM_REQUESTS random ``prompt``-token prompts (seed 0) through
     ``ServeEngine`` in waves of LM_SLOTS, LM_NEW new tokens each, after a
-    warm-up request (cuBLAS set-up, the weights' compute-dtype copies). The
+    warm-up request of WARM_NEW tokens;
+    ``extras`` (one dict of host arrays a request, or None) are the
+    requests' other model inputs (an audio request's ``frames``). The
     served run's kernel launches must equal ``want`` (a kernel not named
     there: 0). Then the same waves step by step through ``prefill`` /
-    ``decode_step``, timed: every logit finite, the tokens the engine's.
-    ``profile`` traces a prefill wave and a decode step. Returns the
-    summary (``rg_launches_by``: the served run's RG-LRU launches by variant
-    and shape); the peak is since the caller's last reset."""
+    ``decode_step``, each wave's extras stacked, timed: every logit finite,
+    the tokens the engine's. ``profile`` traces a prefill wave and a decode
+    step. Returns the summary (``rg_launches_by``: the served run's RG-LRU
+    launches by variant and shape); the peak is since the caller's last
+    reset."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
-    eng = ServeEngine(model, cfg, params,
-                      ServeConfig(max_seq=LM_PROMPT + LM_NEW + 8, batch_slots=LM_SLOTS,
-                                  max_new_tokens=LM_NEW))
-    eng.submit(prompts[0, :16])
-    eng.run()
-    rids = [eng.submit(p) for p in prompts]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_REQUESTS, prompt))
+    extras = extras or [{}] * LM_REQUESTS
+    scfg = ServeConfig(max_seq=prompt + LM_NEW + 8, batch_slots=LM_SLOTS,
+                       max_new_tokens=LM_NEW)
+    warm = ServeEngine(model, cfg, params, dataclasses.replace(scfg, max_new_tokens=WARM_NEW))
+    warm.submit(prompts[0, :16], extras[0])
+    warm.run()
+    eng = ServeEngine(model, cfg, params, scfg)
+    rids = [eng.submit(p, e) for p, e in zip(prompts, extras)]
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2520,13 +2568,21 @@ def _serve_lm(tag: str, cfg, model, params, want: dict, profile: bool = False) -
           "the engine did not return LM_NEW tokens for every request")
 
     toks = torch.from_numpy(prompts.astype(np.int32)).cuda()
+
+    def wave(w0, n=LM_SLOTS):
+        batch = {"tokens": toks[w0:w0 + n]}
+        for k in extras[w0]:
+            batch[k] = torch.stack([torch.as_tensor(e[k]) for e in extras[w0:w0 + n]]).cuda()
+        return batch
+
     prefill_ms, decode_ms = [], []
     with torch.no_grad():
         for w0 in range(0, LM_REQUESTS, LM_SLOTS):
-            cache = model.init_cache(cfg, LM_SLOTS, LM_PROMPT + LM_NEW, "cuda")
+            batch = wave(w0)
+            cache = model.init_cache(cfg, LM_SLOTS, prompt + LM_NEW, "cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lg, cache = model.prefill(params, {"tokens": toks[w0:w0 + LM_SLOTS]}, cfg, cache)
+            lg, cache = model.prefill(params, batch, cfg, cache)
             torch.cuda.synchronize()
             prefill_ms.append(1e3 * (time.perf_counter() - t0))
             check(bool(torch.isfinite(lg).all()), f"{cfg.name} prefill logits are not finite")
@@ -2544,18 +2600,18 @@ def _serve_lm(tag: str, cfg, model, params, want: dict, profile: bool = False) -
                   f"{cfg.name}: the wave at {w0} driven step by step differs from the "
                   f"engine's tokens")
         if profile:
-            batch = {"tokens": toks[:LM_SLOTS]}
-            trace(f"{cfg.name} prefill of a 4 x {LM_PROMPT} wave",
+            batch = wave(0)
+            trace(f"{cfg.name} prefill of a 4 x {prompt} wave",
                   lambda: model.prefill(params, batch, cfg,
-                                        model.init_cache(cfg, LM_SLOTS, LM_PROMPT + 2, "cuda")))
+                                        model.init_cache(cfg, LM_SLOTS, prompt + 2, "cuda")))
             lg, cache = model.prefill(params, batch, cfg,
-                                      model.init_cache(cfg, LM_SLOTS, LM_PROMPT + 2, "cuda"))
+                                      model.init_cache(cfg, LM_SLOTS, prompt + 2, "cuda"))
             nxt = torch.argmax(lg[:, -1], dim=-1)[:, None].to(torch.int32)
             trace(f"{cfg.name} decode step, 4 rows",
                   lambda: model.decode_step(params, nxt, cfg, cache))
     dec = sorted(decode_ms)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[{tag}] {cfg.name} prefill of a 4 x {LM_PROMPT} wave: {prefill_ms[0]:.2f} / "
+    log(f"[{tag}] {cfg.name} prefill of a 4 x {prompt} wave: {prefill_ms[0]:.2f} / "
         f"{prefill_ms[1]:.2f} ms; decode step (4 rows): median {dec[len(dec) // 2]:.3f} ms, "
         f"min {dec[0]:.3f}, max {dec[-1]:.3f} over {len(dec)} steps; every logit finite; "
         f"step-by-step tokens equal the engine's; peak device memory {peak:.2f} GiB")
@@ -2565,8 +2621,8 @@ def _serve_lm(tag: str, cfg, model, params, want: dict, profile: bool = False) -
 
 
 def phase_dense_serve(profile: bool = False):
-    """minicpm-2b at its published width and depth (40 layers, bf16 compute,
-    float32 parameters, random weights) through ``ServeEngine``: 8 requests
+    """minicpm-2b at its published width, SERVE_DEPTH of its 40 layers (bf16
+    compute, float32 parameters, random weights) through ``ServeEngine``: 8 requests
     of 512-token prompts in two waves of 4, 32 new tokens each; logits
     finite; the waves replayed step by step through ``prefill`` /
     ``decode_step`` give the engine's tokens. Returns the phase's summary."""
@@ -2574,7 +2630,7 @@ def phase_dense_serve(profile: bool = False):
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
 
-    cfg = get_config(DENSE_ARCH)
+    cfg = _served(get_config(DENSE_ARCH))
     model = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params, n_params = _init_on_card("dense", cfg, model)
@@ -2796,9 +2852,10 @@ def _analytic_count(cfg) -> int:
 
 
 def phase_moe_serve(profile: bool = False):
-    """granite-moe-1b-a400m (float32 parameters) and moonshot-v1-16b-a3b (a
-    serving tree: matrices held in bf16 only, 56.1 GB) at their published
-    widths and depths, random weights, through ``ServeEngine`` as phase 14
+    """granite-moe-1b-a400m (float32 parameters; SERVE_DEPTH of its 24
+    layers) and moonshot-v1-16b-a3b (a serving tree: matrices held in bf16
+    only, 56.1 GB; every layer) at their published widths, random weights,
+    through ``ServeEngine`` as phase 14
     serves minicpm; capacities 168 and 64 at S=512, 8 at decode; no kernel
     of the port launches; moonshot's peak under 80 GB. ``profile`` traces a
     moonshot prefill wave and decode step. Returns the summaries by arch."""
@@ -2809,7 +2866,7 @@ def phase_moe_serve(profile: bool = False):
 
     out = {}
     for arch in MOE_ARCHS:
-        cfg = get_config(arch)
+        cfg = _served(get_config(arch))
         model = get_model(cfg)
         serving = arch == SERVING_TREE
         caps = (moe_capacity(cfg, LM_PROMPT), moe_capacity(cfg, 1))
@@ -3480,6 +3537,7 @@ def _recurrent_train(tag: str, cfg, per_step: dict, n_params: int) -> dict:
         f"{flops / med / 1e12:.1f} TFLOP/s by 6*N*D, N={count}); peak device memory "
         f"{peak:.2f} GiB; launches a step {per_step}")
     del opt
+    params.to("cuda")           # the held-out evaluation's casts
     torch.cuda.empty_cache()
     tcfg8 = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT, moment_dtype="int8"))
     opt8 = adamw_init(params, tcfg8.optimizer)
@@ -3729,15 +3787,239 @@ def phase_recurrent_cpu_agreement():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the audio family: whisper-large-v3 served and trained, the LM loader
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_PROMPT = 128            # inside Whisper's 224-token prompt and 448-token context
+WHISPER_TRAIN_S = 448           # the decoder's text context
+
+
+def _whisper_count(cfg) -> int:
+    """The tree's parameters from ``param_count()``, which counts the tied
+    head twice (``arch.py``: ``v * d`` at both ends) and leaves out the
+    LayerNorms (two a encoder layer, three a decoder layer, two final, a
+    gain and a bias each) and the MLP biases (``d_ff + d`` a layer)."""
+    d = cfg.d_model
+    norms = 2 * d * (2 * cfg.encoder_layers + 3 * cfg.num_layers + 2)
+    biases = (cfg.d_ff + d) * (cfg.encoder_layers + cfg.num_layers)
+    return cfg.param_count() - cfg.vocab_size * d + norms + biases
+
+
+def _whisper_flops(cfg, b: int, s: int) -> int:
+    """6 N D of a training step (forward and backward matmuls, remat's
+    second forward not counted): the encoder layers' parameters and each
+    decoder layer's cross-attention K/V projections over the B x F encoder
+    frames, the rest of the decoder layers and the tied head over the B x S
+    decoder tokens; the attention's score products are not counted."""
+    d = cfg.d_model
+    enc = cfg.encoder_layers * (4 * d * d + 2 * d * cfg.d_ff)
+    cross_kv = cfg.num_layers * 2 * d * d
+    dec = cfg.num_layers * (6 * d * d + 2 * d * cfg.d_ff) + cfg.vocab_size * d
+    return 6 * (b * cfg.num_frames * (enc + cross_kv) + b * s * dec)
+
+
+def phase_whisper_serve(profile: bool = False):
+    """whisper-large-v3 at its published width and depth (32 encoder and 32
+    decoder layers, d 1280, 20 heads, vocab 51,866, 1,500 frames, bf16
+    compute, float32 parameters, random weights from seed 0 made on the
+    card) through ``ServeEngine``: 8 requests, each with 1,500 random frames
+    and a 128-token prompt, in two waves of 4, 32 new tokens each; no
+    kernel of the port launches; the waves replayed step by step through
+    ``prefill`` / ``decode_step`` give the engine's tokens, every logit
+    finite. Returns (the summary, the parameters for phase 28)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(WHISPER_ARCH)
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params = _init_on_card("whisper", cfg, model)
+    want = _whisper_count(cfg)
+    check(n_params == want, f"{WHISPER_ARCH}: {n_params} parameters, not {want}")
+    log(f"[whisper] {cfg.encoder_layers} encoder layers, {cfg.num_frames} frames; "
+        f"param_count() {cfg.param_count()} counts the tied head twice and no norm or MLP "
+        f"bias: the tree holds {n_params}")
+    rng = np.random.default_rng(1)
+    extras = [{"frames": rng.standard_normal((cfg.num_frames, cfg.d_model), np.float32)}
+              for _ in range(LM_REQUESTS)]
+    out = _serve_lm("whisper", cfg, model, params, {}, profile, WHISPER_PROMPT, extras)
+    return {"params": n_params, **out}, params
+
+
+def phase_whisper_train(params):
+    """whisper-large-v3 trained at full width and depth from phase 27's
+    parameters: TRAIN_STEPS steps of ``make_train_step`` (AdamW at
+    TRAIN_OPT, float32 moments, remat) at B=4, 1,500 frames, S=448, batch t
+    ``synth_batch(0, t)`` drawn on the host and staged on the card by the
+    port's ``DoubleBufferedLoader``, each staged batch equal to the one
+    drawn directly; loss and grad norm finite, no kernel of the port
+    launched. Each step sees a fresh batch of random tokens and frames, so
+    the training losses differ by the batches' own spread; the fall is
+    read on one held-out batch (t = TRAIN_STEPS, never trained on before
+    the int8 step), whose loss must fall from before the first step to
+    after the last. Then one step with int8 moments from a fresh state on
+    that batch; then a smoke checkpoint resumed on the card within 1e-6
+    (``_checkpoint_resume``). Returns the summary."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data.pipeline import DoubleBufferedLoader
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import get_model
+    from repro_torch.train import AdamWConfig, TrainConfig, adamw_init, make_train_step
+    from repro_torch.train.train_step import make_eval_step
+
+    cfg = get_config(WHISPER_ARCH)
+    check(cfg.remat, f"{WHISPER_ARCH}'s config trains with remat")
+    model = get_model(cfg)
+    b, s = TRAIN_B, WHISPER_TRAIN_S
+    held = synth_batch(0, TRAIN_STEPS, cfg, b, s, "cuda")
+    evaluate = make_eval_step(model, cfg)
+    held_before = float(evaluate(params, held)["ce"])
+    # ``to`` drops the frozen tree's cached bf16 casts (ParamTree.mat): a
+    # parameter being trained is cast afresh at every use
+    params.to("cuda")
+    params.requires_grad_(True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+    opt = adamw_init(params, tcfg.optimizer)
+    step = make_train_step(model, cfg, tcfg)
+
+    def make(t):
+        return synth_batch(0, t, cfg, b, s, "cpu")
+
+    loader = DoubleBufferedLoader(make, device="cuda")
+    losses, gnorms, step_s, host_s = [], [], [], []
+    reset_counters()
+    for t in range(TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        batch = next(loader)
+        host_s.append(time.perf_counter() - t0)
+        check(loader.state == t + 1, f"loader state {loader.state} after batch {t}")
+        if t == TRAIN_STEPS:
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        direct = make(t)
+        check(set(batch) == set(direct) == {"tokens", "frames"}
+              and all(torch.equal(batch[k].cpu(), direct[k]) for k in direct),
+              f"the loader's batch {t} differs from synth_batch(0, {t})")
+    launches = _all_launches()
+    held_after = float(evaluate(params, held)["ce"])
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"{WHISPER_ARCH} train losses {losses} or grad norms {gnorms} not finite")
+    check(held_after < held_before, f"{WHISPER_ARCH}: the held-out batch's loss did not fall "
+                                    f"over {TRAIN_STEPS} steps: {held_before} -> {held_after}")
+    check(all(c == 0 for c in launches.values()), f"kernels launched in training: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    flops = _whisper_flops(cfg, b, s)
+    log(f"[whisper-train] {WHISPER_ARCH} full width and depth, B={b}, {cfg.num_frames} frames, "
+        f"S={s}, remat, bf16 compute, float32 params and moments, AdamW {TRAIN_OPT}, batches "
+        f"synth_batch(0, t) through DoubleBufferedLoader (each equal to the direct draw; host s "
+        f"a next() {[round(v, 3) for v in host_s]}): losses {[round(v, 4) for v in losses]}, "
+        f"held-out batch's cross-entropy {held_before:.4f} -> {held_after:.4f}, grad norms {[round(v, 4) for v in gnorms]}; step s {[round(v, 3) for v in step_s]} "
+        f"(median after the first {med:.3f}s, {b * s / med:.1f} decoder tokens/s, "
+        f"{flops / med / 1e12:.1f} TFLOP/s by 6*N*D = {flops / 1e12:.2f} TFLOP a step: the "
+        f"encoder's and the cross K/V's parameters x {b * cfg.num_frames} frames, the rest "
+        f"of the decoder's and the head's x {b * s} tokens); peak device memory {peak:.2f} GiB")
+    del opt
+    params.to("cuda")           # the held-out evaluation's casts
+    torch.cuda.empty_cache()
+    tcfg8 = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT, moment_dtype="int8"))
+    opt8 = adamw_init(params, tcfg8.optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt8, m8 = make_train_step(model, cfg, tcfg8)(params, opt8, batch)
+    torch.cuda.synchronize()
+    s8 = time.perf_counter() - t0
+    peak8 = torch.cuda.max_memory_allocated() / 2**30
+    check(math.isfinite(float(m8["loss"])) and math.isfinite(float(m8["grad_norm"])),
+          f"{WHISPER_ARCH}: the int8-moment step's loss or grad norm is not finite")
+    log(f"[whisper-train] one step with int8 moments (fresh state) on batch {TRAIN_STEPS}: "
+        f"loss {float(m8['loss']):.4f}, grad norm {float(m8['grad_norm']):.4f}, {s8:.3f}s; "
+        f"peak device memory {peak8:.2f} GiB")
+    del params, opt8, batch, held, loader
+    torch.cuda.empty_cache()
+    err_ckpt, state = _checkpoint_resume(WHISPER_ARCH, "whisper-train")
+    scfg = get_smoke(WHISPER_ARCH)
+    check(tuple(state["params"]["enc"]["attn"]["wq"].shape)
+          == (scfg.encoder_layers, scfg.d_model, scfg.d_model)
+          and tuple(state["opt"]["m"]["dec"]["mlp"]["w_up"].shape)
+          == (scfg.num_layers, scfg.d_model, scfg.d_ff),
+          f"{WHISPER_ARCH}: the checkpoint's enc and dec are not stacked on a leading layer "
+          f"axis")
+    return {"losses": losses, "held_out_ce": [held_before, held_after], "grad_norms": gnorms,
+            "step_s": step_s, "step_s_median": med, "decoder_tokens_per_s": b * s / med, "tflops_6nd": flops / med / 1e12,
+            "flops_6nd": flops, "host_s": host_s, "peak_gib": peak, "int8_step_s": s8,
+            "int8_loss": float(m8["loss"]), "int8_peak_gib": peak8, "ckpt_err": err_ckpt}
+
+
+def phase_whisper_cpu_agreement():
+    """The card against the CPU at whisper's smoke config in float32:
+    logits, the train step's loss and metrics, each gradient within 1e-4
+    of its tensor's largest magnitude (``_card_vs_cpu_train``), and the
+    greedy tokens of a 12-token prefill with frames and 8 decode steps
+    equal, their logits within 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import get_model
+
+    cfg = get_smoke(WHISPER_ARCH)
+    model = get_model(cfg)
+    gpu = model.init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    cpu = model.params_from_numpy(gpu.tree(), cfg, "cpu")
+    reset_counters()
+    errs, _, _ = _card_vs_cpu_train(cfg, model, gpu, cpu, "whisper-agree", f"{cfg.name}")
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12))
+                                        .astype(np.int32)),
+             "frames": torch.from_numpy(rng.standard_normal((2, cfg.num_frames, cfg.d_model),
+                                                            np.float32))}
+    runs = {}
+    with torch.no_grad():
+        for dev, params in (("cuda", gpu), ("cpu", cpu)):
+            lg, cache = model.prefill(params, {k: v.to(dev) for k, v in batch.items()}, cfg,
+                                      model.init_cache(cfg, 2, 24, dev))
+            logits, toks = [lg[:, -1].cpu()], [torch.argmax(lg[:, -1], -1)]
+            for _ in range(8):
+                lg, cache = model.decode_step(params, toks[-1][:, None].to(torch.int32), cfg,
+                                              cache)
+                logits.append(lg[:, 0].cpu())
+                toks.append(torch.argmax(lg[:, 0], -1))
+            runs[dev] = (torch.stack(logits), torch.stack(toks, 1).cpu().tolist())
+    err = assert_close(runs["cuda"][0], runs["cpu"][0], "float32",
+                       f"{cfg.name}: card vs CPU decode logits")
+    check(runs["cuda"][1] == runs["cpu"][1],
+          f"{cfg.name}: card tokens {runs['cuda'][1]} differ from the CPU's {runs['cpu'][1]}")
+    launches = _all_launches()
+    check(all(c == 0 for c in launches.values()), f"kernels launched: {launches}")
+    log(f"[whisper-agree] {cfg.name}, float32: a 12-token prefill with frames and 8 decode "
+        f"steps, logits within {err:.3e}, tokens equal {runs['cuda'][1]}")
+    return {**errs, "decode_logits_err": err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--num-series", type=int, default=FULL_SERIES)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--profile", action="store_true",
                     help="also trace 16 queries per backend, a prefill wave and a "
-                         "decode step of rwkv6-7b, of minicpm-2b and of "
-                         "moonshot-v1-16b-a3b, and a minicpm-2b train step, with "
-                         "torch.profiler")
+                         "decode step of rwkv6-7b, of minicpm-2b, of "
+                         "moonshot-v1-16b-a3b and of whisper-large-v3, and a "
+                         "minicpm-2b train step, with torch.profiler")
     ap.add_argument("--disk-dir", default=None,
                     help="directory for the disk phase's index (default: a new "
                          "temporary directory); removed at the end")
@@ -3906,6 +4188,13 @@ def main(argv=None) -> int:
     log(f"[recurrent] phases 22-26 took {phase_s['wkv6_bwd']} / {phase_s['rg_lru_bwd']} / "
         f"{phase_s['rwkv_train']} / {phase_s['griffin_train']} / "
         f"{phase_s['recurrent_agree']}s")
+    torch.cuda.empty_cache()
+    summary["whisper_serve"], wparams = timed("whisper_serve", phase_whisper_serve, args.profile)
+    summary["whisper_train"] = timed("whisper_train", phase_whisper_train, wparams)
+    del wparams
+    summary["whisper_agree"] = timed("whisper_agree", phase_whisper_cpu_agreement)
+    log(f"[whisper] phases 27-29 took {phase_s['whisper_serve']} / "
+        f"{phase_s['whisper_train']} / {phase_s['whisper_agree']}s")
     log(f"[main] summary {json.dumps(summary)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

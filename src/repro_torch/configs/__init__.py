@@ -1,11 +1,11 @@
 """Architecture config registry: ``--arch <id>`` resolution
-(``repro/configs/__init__.py``), holding only the archs the port can run:
-the dense, vlm and mixture-of-experts transformers, RWKV-6 and Griffin.
+(``repro/configs/__init__.py``): the dense, vlm and mixture-of-experts
+transformers, whisper (the audio family), RWKV-6 and Griffin, the
+reference's ten archs.
 
 Each module defines CONFIG (the architecture at its published widths) and
 SMOKE (a reduced same-family config for CPU tests), each equal to the
-reference's field by field, in the reference's order. whisper-large-v3
-waits for the audio family (``ROADMAP.md``).
+reference's field by field, in the reference's order.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ _MODULES = {
     "llama3-405b": "llama3_405b",
     "minicpm-2b": "minicpm_2b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "whisper-large-v3": "whisper_large_v3",
     "rwkv6-7b": "rwkv6_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }

@@ -1,8 +1,14 @@
-"""Chunk sources and chunk readers for the out-of-core build and serving.
+"""The LM loader, and chunk sources and chunk readers for the out-of-core
+build and serving.
 
-Port of ``repro/data/pipeline.py`` (the chunk half and the wave path's
-demand scheduler; the LLM loader comes with a later slice).
+Port of ``repro/data/pipeline.py``.
 
+* :class:`DoubleBufferedLoader` hands out batch t of a deterministic batch
+  function while batch t+1 is already staged on the device (the paper's
+  DBuffer, §3.3, for training batches). Its state is the next step, so a
+  restarted worker regenerates the same stream. Like the reference's, it
+  runs no thread: the overlap comes from an asynchronous host-to-device
+  copy.
 * A :class:`ChunkSource` carves one series collection into fixed-size row
   chunks with stable boundaries, re-iterable any number of times (the
   chunked build makes two passes per round). :class:`ArrayChunkSource`
@@ -26,7 +32,8 @@ fault under the consumer.
 On a CUDA device the threaded reader's slots are pinned host tensors; the
 copy runs on a side stream with ``non_blocking=True``, the consumer's
 stream waits on a CUDA event recorded after it, and a slot goes back to the
-reader thread only once that event has completed. Under ``REPRO_SANITIZE=1``
+reader thread only once that event has completed. The loader stages the
+same way, from a pinned copy of each array that it makes itself. Under ``REPRO_SANITIZE=1``
 every recycle (at ``get()`` and ``close()``) first poisons the rows the slot
 handed out and then checks each tensor staged from it against a snapshot
 (``analysis/sanitize.py``), so a stage that aliased the slot raises there.
@@ -37,7 +44,7 @@ import collections
 import queue
 import threading
 import time
-from typing import Iterator, Protocol, runtime_checkable
+from typing import Callable, Iterator, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -46,6 +53,84 @@ from repro_torch.analysis import sanitize
 from repro_torch.device import resolve_device
 
 PREFETCH_MODES = ("sync", "thread")
+
+
+class DoubleBufferedLoader:
+    """Prefetching loader over a deterministic batch function.
+
+    ``make_batch(step)`` returns a dict (or list) of numpy arrays or CPU
+    tensors, nested freely, and must be pure in ``step``. Batch
+    ``start_step`` is staged on ``device`` (default: the CUDA device) at
+    construction; each ``next()`` hands out the staged batch and stages
+    the following one. Every staged tensor owns its memory, so
+    ``make_batch`` may reuse its arrays. On a CUDA device each array is
+    copied into a fresh pinned host tensor, then to the device on a side
+    stream (``non_blocking``); the consumer's current stream waits on the
+    event behind that copy when the batch is handed out, so the copy of
+    t+1 overlaps the consumer's work on t."""
+
+    def __init__(self, make_batch: Callable[[int], dict], start_step: int = 0,
+                 device: str | torch.device | None = None):
+        self._make = make_batch
+        self._step = int(start_step)
+        self.device = resolve_device(device)
+        self._stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                        else None)
+        self._next = self._stage(self._step)
+
+    def _stage(self, step: int) -> tuple:
+        host = self._make(step)
+        if self._stream is None:
+            return _map_leaves(_owned_cpu, host), None
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)           # outputs may reuse freed memory
+        batch = _map_leaves(self._copy_to_device, host)
+        event = torch.cuda.Event()
+        event.record(self._stream)
+        return batch, event
+
+    def _copy_to_device(self, leaf) -> torch.Tensor:
+        """A pinned copy of ``leaf`` (the caching host allocator keeps it
+        until the copy behind it completes), copied on the side stream."""
+        src = torch.as_tensor(leaf)
+        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        pinned.copy_(src)
+        out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        with torch.cuda.stream(self._stream):
+            out.copy_(pinned, non_blocking=True)
+        return out
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        batch, event = self._next
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+        self._step += 1
+        self._next = self._stage(self._step)    # prefetch t+1 while t runs
+        return batch
+
+    @property
+    def state(self) -> int:
+        """Checkpointable pipeline state: the next step index."""
+        return self._step
+
+
+def _map_leaves(fn, tree):
+    """``fn`` over the arrays of a nested dict/list/tuple batch."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _owned_cpu(leaf) -> torch.Tensor:
+    """A CPU tensor holding a contiguous copy of ``leaf``, never an alias."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().clone(memory_format=torch.contiguous_format)
+    return _owned_copy(np.asarray(leaf), torch.device("cpu"))
 
 
 # ---------------------------------------------------------------------------

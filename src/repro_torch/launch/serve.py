@@ -6,11 +6,14 @@
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
         --prompt-len 512 --new-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --smoke \
+        --device cpu
 
-Builds the arch (any registered arch: dense, vlm, moe, ssm or hybrid) with
-random weights (seed 0) on the CUDA device (``--device cpu`` for the host;
-``--smoke`` for the reduced config), queues random prompts (a vlm request
-also carries random patch embeddings), serves them greedily through
+Builds the arch (any registered arch: dense, vlm, moe, audio, ssm or
+hybrid) with random weights (seed 0) on the CUDA device (``--device cpu``
+for the host; ``--smoke`` for the reduced config), queues random prompts
+(a vlm request also carries random patch embeddings, an audio request
+random frame embeddings), serves them greedily through
 ``ServeEngine`` and reports requests, tokens, seconds and tokens per
 second. It only serves, so the parameters are a serving tree wherever the
 model builds one (each matrix held in the compute dtype only: the same
@@ -57,6 +60,9 @@ def main(argv=None):
     if cfg.family == "vlm":
         extras["patch_embeds"] = rng.normal(
             size=(cfg.num_patches, cfg.d_patch)).astype(np.float32)
+    if cfg.family == "audio":
+        extras["frames"] = rng.normal(
+            size=(cfg.num_frames, cfg.d_model)).astype(np.float32)
     for _ in range(args.requests):
         eng.submit(rng.integers(0, cfg.vocab_size, size=args.prompt_len), extras)
     synchronize(dev)

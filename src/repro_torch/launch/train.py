@@ -28,9 +28,10 @@ from repro_torch.train.train_step import init_train_state
 
 def synth_batch(seed: int, step: int, cfg, batch: int, seq: int, device=None) -> dict:
     """Deterministic batch t = f(seed, t): random tokens (and, for vlm,
-    patch embeddings) from a CPU ``torch.Generator`` seeded from (seed,
-    step), moved to ``device``. The same on every device; not the
-    reference's bits (that one draws with ``jax.random``)."""
+    patch embeddings; for audio, frame embeddings (B, num_frames,
+    d_model)) from a CPU ``torch.Generator`` seeded from (seed, step),
+    moved to ``device``. The same on every device; not the reference's
+    bits (that one draws with ``jax.random``)."""
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(
         int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
@@ -38,6 +39,8 @@ def synth_batch(seed: int, step: int, cfg, batch: int, seq: int, device=None) ->
                                    dtype=torch.int32)}
     if cfg.family == "vlm":
         out["patch_embeds"] = torch.randn((batch, cfg.num_patches, cfg.d_patch), generator=g)
+    if cfg.family == "audio":
+        out["frames"] = torch.randn((batch, cfg.num_frames, cfg.d_model), generator=g)
     return {k: v.to(dev) for k, v in out.items()}
 
 

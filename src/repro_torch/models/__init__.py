@@ -1,8 +1,8 @@
 """Model registry: ArchConfig -> ModelDef dispatch (``repro/models/__init__.py``).
 
-The port runs the ``dense``, ``vlm`` and ``moe`` families (``transformer``),
-the ``ssm`` family (RWKV-6) and the ``hybrid`` family (recurrentgemma). The
-reference's ``audio`` family (whisper) is still to port (``ROADMAP.md``).
+The port runs every family of the reference: ``dense``, ``vlm`` and ``moe``
+(``transformer``), ``audio`` (whisper), ``ssm`` (RWKV-6) and ``hybrid``
+(recurrentgemma).
 """
 from __future__ import annotations
 
@@ -31,9 +31,7 @@ def get_model(cfg: ArchConfig) -> ModelDef:
     elif cfg.family == "hybrid":
         from repro_torch.models import recurrentgemma as m
     elif cfg.family == "audio":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet; see "
-            "ROADMAP.md, queue 1 item 5")
+        from repro_torch.models import whisper as m
     else:
         raise ValueError(f"unknown family {cfg.family}")
     return ModelDef(init=m.init_params, forward=m.forward,

@@ -1,9 +1,10 @@
 """Shared model building blocks (``repro/models/common.py``).
 
 * :class:`ParamTree`: parameters as a module tree with the reference's
-  names, ``blocks`` a list of layers where the reference stacks them on a
-  leading axis, and the tree helpers that carry it to and from the
-  reference's stacked layout (checkpoints, the optimizer's moments).
+  names, each stack of layers (``blocks``; whisper's ``enc`` and ``dec``)
+  a list of layers where the reference stacks them on a leading axis, and
+  the tree helpers that carry it to and from the reference's stacked
+  layout (checkpoints, the optimizer's moments).
 * initialisers on an explicit ``torch.Generator``;
 * RMSNorm, LayerNorm, SwiGLU and GELU MLPs, rotary embeddings;
 * attention with GQA/MQA: full (materialised float32 scores), chunked (a
@@ -45,14 +46,16 @@ class ParamTree(nn.Module):
     moved (``.to``); a parameter being trained gets a fresh, differentiable
     cast at every call, as the reference casts at every call.
 
-    ``stacked`` is the family's layout of the root's ``blocks`` in the
-    reference: True where it stacks them on a leading layer axis (the
-    transformer families and RWKV-6, ``jax.vmap``'s stack), False where it
-    keeps a list of layers (recurrentgemma's mixed layers). Each family's
-    init states it; the optimizer and checkpoints read it as
+    ``stacked`` is the family's layout of its layers in the reference
+    (:func:`stack_keys`): the root keys whose layers it stacks on a leading
+    layer axis (``jax.vmap``'s stack), each a list of layers here: True
+    for ``("blocks",)`` (the transformer families and RWKV-6), a tuple of
+    keys (whisper's ``("enc", "dec")``), False for none (recurrentgemma,
+    whose ``blocks`` the reference keeps as a list of mixed layers). Each
+    family's init states it; the optimizer and checkpoints read it as
     ``stacked_blocks``, and a subtree carries its root's."""
 
-    def __init__(self, tree: dict, *, stacked: bool):
+    def __init__(self, tree: dict, *, stacked: bool | tuple[str, ...]):
         super().__init__()
         self._casts: dict = {}
         self.stacked_blocks = stacked
@@ -118,40 +121,48 @@ def tree_unflatten(tree, leaves) -> dict:
     return tree_map(lambda _: next(it), tree)
 
 
-def stacked_path(path) -> bool:
-    """Whether a :func:`leaf_groups` path is a leaf of stacked ``blocks``
+def stack_keys(stacked: bool | tuple[str, ...]) -> tuple[str, ...]:
+    """The root keys a layout ``stacked`` (``ParamTree.stacked_blocks``)
+    stacks: True is ``("blocks",)``, False none, a tuple those keys."""
+    if isinstance(stacked, bool):
+        return ("blocks",) if stacked else ()
+    return tuple(stacked)
+
+
+def stacked_path(path, stacked: bool | tuple[str, ...]) -> bool:
+    """Whether a :func:`leaf_groups` path is a leaf of a stack of layers
     (one tensor a layer), not one of a list layout's layers."""
-    return path[0] == "blocks" and not isinstance(path[1], int)
+    return (len(path) > 1 and path[0] in stack_keys(stacked)
+            and not isinstance(path[1], int))
 
 
-def leaf_groups(tree: dict, stacked: bool) -> list[tuple[tuple, list]]:
+def leaf_groups(tree: dict, stacked: bool | tuple[str, ...]) -> list[tuple[tuple, list]]:
     """The reference's leaves of a port tree: ``(path, tensors)`` with one
-    tensor for a leaf outside ``blocks``. A leaf of ``blocks`` takes the
-    reference's layout of them (``ParamTree.stacked_blocks``): with
-    ``stacked``, one group a leaf path with one tensor a layer, in layer
-    order (the reference stacks them on a leading axis); else a list, one
-    group a leaf of each layer, its path ``("blocks", i, ...)``.
+    tensor for a leaf outside the lists of layers. A list of layers takes
+    the reference's layout of it (``ParamTree.stacked_blocks``): under a
+    root key that ``stacked`` stacks (:func:`stack_keys`), one group a
+    leaf path with one tensor a layer, in layer order (the reference
+    stacks them on a leading axis); else a list, one group a leaf of each
+    layer, its path ``(key, i, ...)``.
 
     Module-level recursion, no closure: a recursive inner function that
     holds ``out`` is a reference cycle, and would keep every tensor listed
     (a step's gradients) alive until the garbage collector ran."""
     out: list = []
-    _walk_groups(tree, (), stacked, out)
+    _walk_groups(tree, (), stack_keys(stacked), out)
     return out
 
 
-def _walk_groups(node: dict, path: tuple, stacked: bool, out: list) -> None:
+def _walk_groups(node: dict, path: tuple, stacks: tuple, out: list) -> None:
     for key, val in node.items():
-        if key == "blocks" and not path:
-            if stacked:
-                for sub, _ in leaf_groups(val[0], stacked):
-                    out.append((("blocks", *sub), [get_path(layer, sub) for layer in val]))
-            else:
-                for i, layer in enumerate(val):
-                    out.extend((("blocks", i, *sub), ts)
-                               for sub, ts in leaf_groups(layer, stacked))
+        if not path and key in stacks:
+            for sub, _ in leaf_groups(val[0], ()):
+                out.append(((key, *sub), [get_path(layer, sub) for layer in val]))
+        elif isinstance(val, (list, tuple)):
+            for i, layer in enumerate(val):
+                out.extend(((*path, key, i, *sub), ts) for sub, ts in leaf_groups(layer, ()))
         elif isinstance(val, dict):
-            _walk_groups(val, (*path, key), stacked, out)
+            _walk_groups(val, (*path, key), stacks, out)
         else:
             out.append(((*path, key), [val]))
 
@@ -166,7 +177,7 @@ def get_path(tree, path):
 
 def nest(items) -> dict:
     """A nested dict from ``(path, value)`` pairs; a level keyed by ints
-    becomes a list (the list layout of ``blocks``)."""
+    becomes a list (the list layout of layers)."""
     root: dict = {}
     for path, val in items:
         node = root
@@ -184,11 +195,11 @@ def _listify(node):
     return {k: _listify(v) for k, v in node.items()}
 
 
-def stack_tree(tree: dict, stacked: bool) -> dict:
-    """A port tree (``blocks`` a list of layers) in the reference's layout
-    (:func:`leaf_groups`): ``blocks`` stacked on a leading layer axis (a
-    copy), or a list of layers; every leaf detached."""
-    return nest((path, torch.stack([t.detach() for t in ts]) if stacked_path(path)
+def stack_tree(tree: dict, stacked: bool | tuple[str, ...]) -> dict:
+    """A port tree (each stack a list of layers) in the reference's layout
+    (:func:`leaf_groups`): each stack of ``stacked`` on a leading layer
+    axis (a copy), other lists of layers kept; every leaf detached."""
+    return nest((path, torch.stack([t.detach() for t in ts]) if stacked_path(path, stacked)
                  else ts[0].detach())
                 for path, ts in leaf_groups(tree, stacked))
 
@@ -217,14 +228,16 @@ def hold(node: dict, dtype: torch.dtype) -> dict:
     return node
 
 
-def params_from_numpy(tree: dict, num_layers: int,
+def params_from_numpy(tree: dict, num_layers: int | dict,
                       device: str | torch.device | None = None,
-                      held: torch.dtype | None = None, *, stacked: bool) -> ParamTree:
+                      held: torch.dtype | None = None, *,
+                      stacked: bool | tuple[str, ...]) -> ParamTree:
     """A parameter tree of numpy arrays or tensors, carried into a float32
     :class:`ParamTree` of the family's layout ``stacked`` on ``device``
-    (default: the CUDA device). ``blocks`` may come stacked on a leading
-    layer axis (the reference's layout where ``stacked``, as ``jax.vmap``
-    leaves it) or as a list of layers (the reference's layout of mixed
+    (default: the CUDA device). A list of layers comes either stacked on a
+    leading layer axis (the reference's layout under a key ``stacked``
+    stacks, as ``jax.vmap`` leaves it; ``num_layers`` layers, or
+    ``num_layers[key]``) or as a list (the reference's layout of mixed
     layers, recurrentgemma's, and the port's own ``ParamTree.tree()``).
     With ``held``, a serving tree in that dtype (:func:`hold`), each layer
     held as it is carried, so the float32 layers never exist on ``device``
@@ -243,10 +256,15 @@ def params_from_numpy(tree: dict, num_layers: int,
     def done(node):
         return node if held is None else hold(node, held)
 
-    out = {key: convert(val) for key, val in tree.items() if key != "blocks"}
-    blocks = tree["blocks"]
-    out["blocks"] = [done(convert(b)) for b in blocks] if isinstance(blocks, (list, tuple)) \
-        else [done(convert(blocks, i)) for i in range(num_layers)]
+    def layers(key, val):
+        if isinstance(val, (list, tuple)):
+            return [done(convert(b)) for b in val]
+        n = num_layers[key] if isinstance(num_layers, dict) else num_layers
+        return [done(convert(val, i)) for i in range(n)]
+
+    stacks = stack_keys(stacked)
+    out = {key: layers(key, val) if key in stacks or isinstance(val, (list, tuple))
+           else convert(val) for key, val in tree.items()}
     return ParamTree(done(out), stacked=stacked)
 
 

@@ -135,9 +135,11 @@ class ServeEngine(SlotQueue):
 
     def submit(self, prompt: np.ndarray, extras: dict | None = None) -> int:
         """Queue a 1-D prompt of token ids, with ``extras`` the request's
-        other model inputs (a vlm's ``patch_embeds`` (P, d_patch)); returns
-        its request id. A wave takes the extras' keys from its first
-        request and stacks each over the wave."""
+        other model inputs, each without the batch axis (a vlm's
+        ``patch_embeds`` (P, d_patch), an audio model's ``frames``
+        (num_frames, d_model)); returns its request id. A wave takes the
+        extras' keys from its first request and stacks each over the wave
+        on the engine's device."""
         return self._enqueue({"prompt": np.asarray(prompt), "extras": extras or {}})
 
     def _prefill_batch(self, requests: list[dict]):
@@ -155,8 +157,8 @@ class ServeEngine(SlotQueue):
         if lens.min() != maxlen:
             batch["lens"] = torch.from_numpy(lens).to(self.device)
         for k in requests[0]["extras"]:
-            batch[k] = torch.stack([torch.as_tensor(np.asarray(r["extras"][k]))
-                                    for r in requests]).to(self.device)
+            batch[k] = torch.stack([torch.as_tensor(r["extras"][k], device=self.device)
+                                    for r in requests])
         cache = self.model.init_cache(self.cfg, b, self.scfg.max_seq, self.device)
         return self.model.prefill(self.params, batch, self.cfg, cache)
 

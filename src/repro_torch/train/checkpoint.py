@@ -3,9 +3,10 @@ reference's file layout, so that each package reads the other's.
 
 A checkpoint is ``step_XXXXXXXX.npz`` in ``ckpt_dir``: one array per leaf
 of the state, keyed by its path joined with ``/`` (``params/blocks/attn/wq``,
-``opt/m/...``, ``opt/step``), ``blocks`` stacked on a leading layer axis
-as JAX stacks them, or a list of layers (``params/blocks/0/rec/w_x``) where
-the reference keeps one (recurrentgemma), and a JSON ``__meta__`` holding
+``opt/m/...``, ``opt/step``), each stack of layers (``blocks``; whisper's
+``enc`` and ``dec``) on a leading layer axis as JAX stacks them, or a list
+of layers (``params/blocks/0/rec/w_x``) where the reference keeps one
+(recurrentgemma), and a JSON ``__meta__`` holding
 the step and the caller's extra metadata. It is written to ``.npz.tmp``
 and then renamed, so a crash mid-write never corrupts the latest
 checkpoint. The
@@ -94,8 +95,8 @@ def latest_step(ckpt_dir: str) -> int | None:
 def load_checkpoint(ckpt_dir: str, step: int | None = None,
                     device: str | torch.device | None = None) -> tuple[dict, dict]:
     """Load (state, meta): the state's leaves as tensors on ``device``
-    (default: the CUDA device), in the reference's layout (``blocks``
-    stacked, or a list; ``ModelDef.params_from_numpy`` makes the port's
+    (default: the CUDA device), in the reference's layout (each stack of
+    layers stacked, or a list; ``ModelDef.params_from_numpy`` makes the port's
     parameters of ``state["params"]``)."""
     dev = resolve_device(device)
     step = step if step is not None else latest_step(ckpt_dir)

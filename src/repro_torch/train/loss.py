@@ -13,6 +13,7 @@ def make_labels(batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tenso
     * plain LM: position i predicts tokens[i+1]; last position masked, and
       ``batch["loss_mask"]`` (B, S) multiplies the mask when given.
     * vlm: logits run over [patches | text]; only text-token targets count.
+    * audio (whisper): teacher-forced decoder tokens, standard shift.
     """
     tokens = batch["tokens"]
     b, s = tokens.shape

@@ -2,9 +2,10 @@
 (``repro/train/optimizer.py``).
 
 The moments live in the reference's layout: a nested dict of the
-reference's parameter paths, ``blocks`` stacked on a leading layer axis,
-or a list of layers where the reference keeps one (recurrentgemma's mixed
-layers; ``models/common.py::leaf_groups``). So the int8 blocks are the
+reference's parameter paths, each stack of layers (``blocks``; whisper's
+``enc`` and ``dec``) stacked on a leading layer axis, or a list of layers
+where the reference keeps one (recurrentgemma's mixed layers;
+``models/common.py::leaf_groups``). So the int8 blocks are the
 reference's blocks (a stacked norm vector's padded fallback spans the
 layers, as it does there), and a checkpoint of either package holds the
 other's optimizer state. The parameters are the port's
@@ -106,8 +107,8 @@ def _groups(tree, params: C.ParamTree) -> list:
     return C.leaf_groups(_tree(tree), params.stacked_blocks)
 
 
-def _stacked_shape(path, tensors) -> tuple:
-    return ((len(tensors), *tensors[0].shape) if C.stacked_path(path)
+def _stacked_shape(path, tensors, params: C.ParamTree) -> tuple:
+    return ((len(tensors), *tensors[0].shape) if C.stacked_path(path, params.stacked_blocks)
             else tuple(tensors[0].shape))
 
 
@@ -118,7 +119,7 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
     dev = groups[0][1][0].device
 
     def moment(path, ts):
-        z = torch.zeros(_stacked_shape(path, ts), dtype=torch.float32, device=dev)
+        z = torch.zeros(_stacked_shape(path, ts, params), dtype=torch.float32, device=dev)
         return _quantize(z) if cfg.moment_dtype == "int8" else z
 
     return {"m": C.nest((path, moment(path, ts)) for path, ts in groups),
@@ -147,11 +148,11 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     new_m, new_v = [], []
     for (path, ps), (_, gs) in zip(_groups(params, params), _groups(grads, params)):
         m, v = C.get_path(state["m"], path), C.get_path(state["v"], path)
-        shape = _stacked_shape(path, ps)
+        shape = _stacked_shape(path, ps, params)
         if int8:
             size = math.prod(shape)
             m, v = _dequantize(m, shape, size), _dequantize(v, shape, size)
-        stacked = C.stacked_path(path)
+        stacked = C.stacked_path(path, params.stacked_blocks)
         for i, (p, g) in enumerate(zip(ps, gs)):
             mi, vi = (m[i], v[i]) if stacked else (m, v)
             g = (g * scale if scale is not None else g).to(torch.float32)

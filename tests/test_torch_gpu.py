@@ -5,9 +5,9 @@ card, and through the store: append, query with the journal merged,
 compact), the banded-DTW kernel and ``dtw_knn``, the sanitized pinned
 reader, RWKV-6 logits and tokens against the CPU's, the dense, vlm and MoE
 transformers' logits, tokens, train step and AdamW against the CPU's, and
-the RG-LRU scan kernel and recurrentgemma against the CPU, and the
+the RG-LRU scan kernel and recurrentgemma against the CPU, the
 recurrences' gradient kernels and both recurrent families' train steps
-against the CPU.
+against the CPU, whisper against the CPU, and the LM loader's staging.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -1190,3 +1190,48 @@ def test_griffin_smoke_on_the_card_equals_cpu(cuda):
     assert_close(lg, lc)
     rows = toks.numpy()
     assert _served(model, cfg, gpu, rows) == _served(model, cfg, cpu, rows)
+
+
+def test_loader_stages_on_the_card(cuda):
+    """``DoubleBufferedLoader`` on the card: pinned copies on a side stream,
+    the consumer's stream waiting on each batch's event; the batches equal
+    the CPU loader's bit for bit, whatever ``make_batch`` does to its
+    buffer after handing it over."""
+    buf = np.zeros((64, 1024), np.float32)
+
+    def make(step):
+        buf[:] = np.random.default_rng(step).standard_normal(buf.shape)
+        return {"x": buf, "ids": torch.arange(8, dtype=torch.int32) + step}
+
+    card = TP.DoubleBufferedLoader(make, device=cuda)
+    got = [next(card) for _ in range(4)]
+    host = TP.DoubleBufferedLoader(make, device="cpu")
+    for batch in got:
+        want = next(host)
+        assert batch["x"].device.type == "cuda" and batch["ids"].dtype == torch.int32
+        assert torch.equal(batch["x"].cpu(), want["x"])
+        assert torch.equal(batch["ids"].cpu(), want["ids"])
+    assert card.state == 4
+
+
+def test_whisper_smoke_on_the_card_equals_cpu(cuda):
+    """whisper's smoke model with the same weights: forward logits within
+    1e-4 and the same served greedy tokens, with each request's frames;
+    no kernel of the port launches."""
+    cfg, model, gpu, cpu = _smoke_pair(cuda, "whisper-large-v3")
+    rng = np.random.default_rng(39)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 12)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal((3, cfg.num_frames, cfg.d_model))
+                              .astype(np.float32))
+    with torch.no_grad():
+        lg, _ = model.forward(gpu, {"tokens": toks.to(cuda), "frames": frames.to(cuda)}, cfg)
+        lc, _ = model.forward(cpu, {"tokens": toks, "frames": frames}, cfg)
+    assert_close(lg, lc)
+    outs = []
+    for params in (gpu, cpu):
+        eng = ServeEngine(model, cfg, params, ServeConfig(max_seq=64, batch_slots=2,
+                                                          max_new_tokens=8))
+        for row, f in zip(toks.numpy(), frames.numpy()):
+            eng.submit(row, {"frames": f})
+        outs.append(eng.run())
+    assert outs[0] == outs[1]

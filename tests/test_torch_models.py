@@ -235,8 +235,8 @@ def test_compute_weight_copies():
 def test_arch_config_copy_and_registry():
     """The port's ArchConfig is the reference's (every field, the derived
     counts, the shape cells); its registry holds rwkv6-7b, the dense, vlm
-    and MoE archs and recurrentgemma (``tests/test_torch_transformer.py``),
-    with the reference's configs, and not whisper, whose family waits."""
+    and MoE archs, whisper and recurrentgemma
+    (``tests/test_torch_transformer.py``), with the reference's configs."""
     assert [f.name for f in dataclasses.fields(TArch)] == \
         [f.name for f in dataclasses.fields(jget_config("rwkv6-7b"))]
     assert "rwkv6-7b" in tconfigs.ARCH_NAMES
@@ -248,24 +248,27 @@ def test_arch_config_copy_and_registry():
     assert {k: dataclasses.asdict(v) for k, v in TSHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
     assert TLONG == JLONG
-    for arch in ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "recurrentgemma-2b"):
+    for arch in ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "recurrentgemma-2b",
+                 "whisper-large-v3"):
         assert dataclasses.asdict(tconfigs.get_config(arch)) == \
             dataclasses.asdict(jget_config(arch))
+    assert dataclasses.asdict(tconfigs.get_smoke("whisper-large-v3")) == \
+        dataclasses.asdict(jget_smoke("whisper-large-v3"))
     with pytest.raises(KeyError):
-        tconfigs.get_config("whisper-large-v3")
+        tconfigs.get_config("whisper-tiny")
 
 
 def test_get_model_dispatch():
     from repro_torch.models import recurrentgemma as TG
     from repro_torch.models import transformer as TT
+    from repro_torch.models import whisper as TW
     model = tget_model(tconfigs.get_smoke("rwkv6-7b"))
     assert model.prefill is TR.prefill and model.init is TR.init_params
-    for family, module in (("moe", TT), ("hybrid", TG)):
+    for family, module in (("moe", TT), ("hybrid", TG), ("audio", TW)):
         cfg = dataclasses.replace(tconfigs.get_smoke("rwkv6-7b"), family=family)
         assert tget_model(cfg).prefill is module.prefill
-    cfg = dataclasses.replace(tconfigs.get_smoke("rwkv6-7b"), family="audio")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tget_model(cfg)
+    model = tget_model(tconfigs.get_smoke("whisper-large-v3"))
+    assert model.init is TW.init_params and model.params_from_numpy is TW.params_from_numpy
     with pytest.raises(ValueError):
         tget_model(dataclasses.replace(tconfigs.get_smoke("rwkv6-7b"), family="x"))
 

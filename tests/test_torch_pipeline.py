@@ -155,3 +155,82 @@ def test_reader_argument_checks(prefetch):
     assert TP.PREFETCH_MODES == JP.PREFETCH_MODES
     assert TP.READ_STAT_KEYS == JP.READ_STAT_KEYS
     assert TP.AsyncChunkReader.THREAD_NAME == JP.AsyncChunkReader.THREAD_NAME
+
+
+# ---------------------------------------------------------------------------
+# DoubleBufferedLoader (the LM loader)
+# ---------------------------------------------------------------------------
+
+def make_step(step):
+    rng = np.random.default_rng(step)
+    return {"x": rng.normal(size=(4,)).astype(np.float32),
+            "sub": {"ids": rng.integers(0, 9, (2, 3)).astype(np.int32)}}
+
+
+def flat(batch):
+    return {"x": np.asarray(batch["x"]), "ids": np.asarray(batch["sub"]["ids"])}
+
+
+def test_loader_stream_equals_reference():
+    """The reference's ``DoubleBufferedLoader`` and the port's over the same
+    ``make``: the same batches in the same order, nested dicts kept, and
+    the same ``state``."""
+    a = JP.DoubleBufferedLoader(make_step)
+    b = TP.DoubleBufferedLoader(make_step, device=CPU)
+    for _ in range(5):
+        want, got = flat(next(a)), next(b)
+        assert isinstance(got["x"], torch.Tensor) and got["x"].device == CPU
+        assert got["sub"]["ids"].dtype == torch.int32
+        for k, v in flat(got).items():
+            np.testing.assert_array_equal(v, want[k])
+    assert a.state == b.state == 5
+
+
+def test_loader_resumes_at_start_step_and_state_advances():
+    straight = TP.DoubleBufferedLoader(make_step, device=CPU)
+    assert straight.state == 0
+    got = [flat(next(straight)) for _ in range(5)]
+    assert straight.state == 5
+    resumed = TP.DoubleBufferedLoader(make_step, start_step=3, device=CPU)
+    assert resumed.state == 3
+    for want in got[3:]:
+        for k, v in flat(next(resumed)).items():
+            np.testing.assert_array_equal(v, want[k])
+    assert resumed.state == 5
+    assert iter(resumed) is resumed
+    it = zip(range(2), resumed)
+    assert [i for i, _ in it] == [0, 1] and resumed.state == 7
+
+
+def test_loader_batch_survives_make_batch_reusing_its_buffer():
+    """``make_batch`` hands out the same numpy array and the same tensor at
+    every step, refilled in place: each batch handed out (and the one
+    staged behind it) keeps its own step's values, and owns its memory."""
+    buf = np.zeros((3, 5), np.float32)
+    tbuf = torch.zeros(4, dtype=torch.int64)
+
+    def make(step):
+        buf[:] = step
+        tbuf.fill_(10 * step)
+        return {"a": buf, "b": tbuf}
+
+    loader = TP.DoubleBufferedLoader(make, device=CPU)
+    batches = [next(loader) for _ in range(4)]
+    for step, batch in enumerate(batches):
+        assert not np.shares_memory(batch["a"].numpy(), buf)
+        assert batch["b"].untyped_storage().data_ptr() != tbuf.untyped_storage().data_ptr()
+        assert (batch["a"] == step).all() and (batch["b"] == 10 * step).all()
+    buf[:] = -1
+    tbuf.fill_(-1)
+    assert all((b["a"] == s).all() for s, b in enumerate(batches))
+    assert (next(loader)["a"] == 4).all()
+
+
+def test_loader_needs_a_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TP.DoubleBufferedLoader(lambda step: calls.append(step) or make_step(step))
+    assert calls == []
+    assert TP.DoubleBufferedLoader(make_step, device="cpu").state == 0
+    assert not [t for t in threading.enumerate() if t.name.startswith("repro-")]

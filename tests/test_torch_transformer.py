@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro import configs as jconfigs
 from repro.configs import get_smoke as jget_smoke
 from repro.models import common as JC
 from repro.models import get_model as jget_model
@@ -32,6 +33,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import common as TC
 from repro_torch.models import get_model as tget_model
 from repro_torch.models import transformer as TT
+from repro_torch.models import whisper as TW
 from repro_torch.serve import ServeConfig, ServeEngine
 from _torch_threads import one_torch_thread  # noqa: F401
 
@@ -394,7 +396,8 @@ def test_init_params_has_the_reference_tree(arch):
 
 def test_config_copies_and_registry():
     assert tconfigs.ARCH_NAMES == (("granite-moe-1b-a400m", "moonshot-v1-16b-a3b") + ARCHS[1:4]
-                                   + ARCHS[:1] + ARCHS[4:] + ("rwkv6-7b", "recurrentgemma-2b"))
+                                   + ARCHS[:1] + ARCHS[4:]
+                                   + ("whisper-large-v3", "rwkv6-7b", "recurrentgemma-2b"))
     for arch in tconfigs.ARCH_NAMES:
         for get_t, get_j in ((tconfigs.get_config, jget_config),
                              (tconfigs.get_smoke, jget_smoke)):
@@ -403,9 +406,8 @@ def test_config_copies_and_registry():
             assert t.param_count() == j.param_count()
     assert {k: dataclasses.asdict(v) for k, v in tconfigs.all_configs().items()} == \
         {k: dataclasses.asdict(jget_config(k)) for k in tconfigs.ARCH_NAMES}
-    for arch in ("whisper-large-v3",):
-        with pytest.raises(KeyError):
-            tconfigs.get_config(arch)
+    assert tconfigs.ARCH_NAMES == jconfigs.ARCH_NAMES
+    assert tget_model(tconfigs.get_smoke("whisper-large-v3")).forward is TW.forward
     for arch in ARCHS:
         model = tget_model(tconfigs.get_smoke(arch))
         assert model.forward is TT.forward and model.params_from_numpy is TT.params_from_numpy
