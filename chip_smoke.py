@@ -4,6 +4,7 @@
     python3 chip_smoke.py                      # the full run (2**22 x 256)
     python3 chip_smoke.py --num-series 65536   # a short check
     python3 chip_smoke.py --disk-dir /big/tmp  # put the disk index there
+    python3 chip_smoke.py --mesh-only          # build, then phases 30-33 alone
 
 Phases (any failure ends the run with a non-zero exit):
 
@@ -231,7 +232,33 @@ Phases (any failure ends the run with a non-zero exit):
 29. the card against the CPU at whisper's smoke config in float32:
    logits, the train step's metrics, each gradient within 1e-4 of its
    tensor's largest magnitude, and 8 greedy decode steps after a prefill
-   with frames, logits within 1e-4 and tokens equal.
+   with frames, logits within 1e-4 and tokens equal;
+30. the specs on ``meta``: ``param_specs`` of all ten archs (bytes a tree,
+   llama3-405b's within 10% of 2 x ``param_count()``) and the bytes a chip
+   holds under ``shard_params_tree`` on the 16 x 16 and 2 x 16 x 16
+   production meshes of ``meta`` devices; the card's allocation must not
+   move;
+31. GPipe over ``rwkv6-7b`` at full width, 8 of its 32 layers (random
+   weights, seed 0) in 4 stages of 2 on a ``stage`` mesh of four
+   ``cuda:0`` entries, 4 microbatches of (1, 512) embeddings: forward and
+   backward of sum(out**2) against the same layers run one microbatch at
+   a time (outputs within 1e-5, gradients within 1e-4 of each tensor's
+   largest magnitude), 32 ``wkv6`` and 32 ``wkv6_bwd`` launches at (1,
+   512, 64, 64, 64) and no other kernel in each of its three runs (the
+   pipeline twice, the plain run); before them both kernels held to their
+   plain versions at that shape;
+32. the int8 error-feedback all-reduce (``compressed_psum``) over 4
+   workers on four ``cuda:0`` entries, each with one microbatch's gradient
+   of phase 31's stage 0 (2 layers), two steps: over every entry the
+   codes, error buffers and means exactly the reference's arithmetic
+   recomputed in float64, each mean within 0.51 x its scale of the exact
+   mean; codes, scales, means and error buffers bit for bit the same run
+   on the CPU over a sample of each tensor holding its largest entries;
+   the int8 payload's bytes against float32;
+33. ``reshard_checkpoint`` of phase 31's layers as host numpy (the
+   reference's layout) under ``param_spec`` on a (data 2, model 2) mesh of
+   ``cuda:0``, then on (data 1, model 4): every piece its ``shard_shape``,
+   every gather bit for bit.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
 ``device_ms``, a CUDA graph's time; two ``dtw_band`` rows from phase 7b,
@@ -252,6 +279,7 @@ and power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import itertools
 import json
@@ -569,8 +597,9 @@ def reset_counters():
     ked.ed_matrix.launches = 0
     ked.ed_min.launches = 0
     ked.decode_bf16_ed_matrix.launches = 0
-    kwkv.wkv6.launches = 0
-    kwkv.wkv6_bwd.launches = 0
+    for fn in (kwkv.wkv6, kwkv.wkv6_bwd):
+        fn.launches = 0
+        fn.launches_by.clear()
 
 
 def read_counters() -> dict:
@@ -3235,8 +3264,8 @@ def _wkv_bwd_cost(b, t, h, dk, dv, esize):
 
 
 def _rel_err(got, want) -> float:
-    """max |got - want| over the largest |want| (float32, on the CPU)."""
-    got, want = got.float().cpu(), want.float().cpu()
+    """max |got - want| over the largest |want| (float32, on want's device)."""
+    got, want = got.float().to(want.device), want.float()
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
@@ -4011,6 +4040,470 @@ def phase_whisper_cpu_agreement():
     return {**errs, "decode_logits_err": err}
 
 
+PIPE_LAYERS, PIPE_STAGES, PIPE_MICRO = 8, 4, 4     # rwkv6-7b layers, GPipe stages, microbatches
+PIPE_TOKENS = 512                                  # a microbatch: (1, 512) tokens' embeddings
+PIPE_OUT_TOL, PIPE_GRAD_TOL = 1e-5, 1e-4           # of each tensor's largest magnitude
+COMP_STEPS = 2                                     # compressed all-reduce steps (error feedback)
+COMP_CPU_ENTRIES = 1 << 18                         # a tensor's entries the CPU run takes
+MESH_PHASES_BUDGET_S = 30.0                        # phases 30-33 together
+
+
+def phase_specs() -> dict:
+    """Phase 30: ``param_specs`` of all ten archs on ``meta`` (bytes a tree,
+    llama3-405b's within 10% of 2 x ``param_count()``: it keeps bf16
+    parameters) and the bytes one chip holds under ``shard_params_tree`` on
+    the production meshes (16 x 16 and 2 x 16 x 16 of ``meta`` devices);
+    the card's allocation must not move."""
+    import torch
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.distributed.sharding import flatten_paths, shard_params_tree
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import param_specs, tree_bytes
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    meshes = {"16x16": make_production_mesh(), "2x16x16": make_production_mesh(multi_pod=True)}
+    out = {}
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch)
+        spec = param_specs(cfg)
+        leaves = flatten_paths(spec)
+        check(all(x.is_meta for x in leaves.values()), f"{arch}: a spec leaf is not on meta")
+        total, n = tree_bytes(spec), cfg.param_count()
+        row = {"bytes": total, "param_count": n, "leaves": len(leaves)}
+        for name, mesh in meshes.items():
+            shards = flatten_paths(shard_params_tree(spec, mesh))
+            row[f"per_chip_{name}"] = sum(math.prod(shards[p].shard_shape(x.shape))
+                                          * x.element_size() for p, x in leaves.items())
+        out[arch] = row
+        log(f"[specs] {arch}: {len(leaves)} leaves, {total / 1e9:.3f} GB of {cfg.param_dtype} "
+            f"parameters ({total / n:.4f} bytes a counted parameter); a chip holds "
+            f"{row['per_chip_16x16'] / 1e9:.4f} GB on 16 x 16, "
+            f"{row['per_chip_2x16x16'] / 1e9:.4f} GB on 2 x 16 x 16")
+    big = out["llama3-405b"]
+    check(abs(big["bytes"] - 2 * big["param_count"]) / (2 * big["param_count"]) < 0.1,
+          f"llama3-405b's spec bytes {big['bytes']} are not within 10% of 2 x {big['param_count']}")
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    check(after == before and peak == before,
+          f"the specs allocated on the card: {before} -> {after} bytes, peak {peak}")
+    log(f"[specs] no allocation on the card ({before} bytes before and after, peak {peak})")
+    return out
+
+
+def _pipe_stage(cfg):
+    """One GPipe stage of rwkv6 layers: each layer from zero states, as
+    ``rwkv6._run`` runs a fresh cache."""
+    import torch
+    from repro_torch.models import rwkv6
+
+    h, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+
+    def stage(layers, x):
+        b, dev = x.shape[0], x.device
+        for p in layers:
+            x = rwkv6._layer(p, x, torch.zeros((b, cfg.d_model), device=dev),
+                             torch.zeros((b, cfg.d_model), device=dev),
+                             torch.zeros((b, h, hs, hs), device=dev), cfg)[0]
+        return x
+
+    return stage
+
+
+def _hold_wkv6_pair(shape, dtype: str) -> dict:
+    """``wkv6`` and ``wkv6_bwd`` on random card inputs at ``shape`` with r,
+    k, v (and dout) in ``dtype``: the forward within TOL of ``wkv6_ref``
+    and bit for bit ``wkv6_fma_ref``, the gradients within a ``dtype``
+    step of ``wkv6_bwd_ref``'s largest magnitudes. Returns the errors."""
+    import torch
+    from repro_torch.kernels import ref, wkv6 as kwkv
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    dt = getattr(torch, dtype)
+    a = _wkv_inputs(g, *shape, dt)
+    got = kwkv.wkv6(*a)
+    want_o, want_s = ref.wkv6_ref(*a)
+    what = f"{shape} {dtype}"
+    fwd = max(assert_close(got[0], want_o, dtype, f"wkv6 {what} out"),
+              assert_close(got[1], want_s, "float32", f"wkv6 {what} state"))
+    hold_wkv6_bits(a, got, what)
+    b, t, h, _, dv = shape
+    grads_in = [*a, torch.randn((b, t, h, dv), generator=g, device="cuda").to(dt),
+                torch.randn(tuple(a[5].shape), generator=g, device="cuda")]
+    bwd = _hold_wkv6_bwd(grads_in, kwkv.wkv6_bwd(*grads_in),
+                         BF16_GRAD_REL_TOL if dtype == "bfloat16" else GRAD_REL_TOL, what)
+    secs = time.perf_counter() - t0
+    log(f"[pipeline] wkv6 at {what}: within {fwd:.3e} of wkv6_ref and bit for bit "
+        f"wkv6_fma_ref; wkv6_bwd within {bwd:.3e} of wkv6_bwd_ref's largest magnitudes "
+        f"(held in {secs:.2f}s)")
+    return {"wkv6_max_abs_err": fwd, "wkv6_bwd_rel_err": bwd, "held_s": secs}
+
+
+def phase_pipeline() -> tuple[dict, object, list]:
+    """Phase 31: GPipe over rwkv6-7b at full width, PIPE_LAYERS of its 32
+    layers (random weights, seed 0) in PIPE_STAGES stages of 2 on a
+    ``stage`` mesh of four ``cuda:0`` entries, PIPE_MICRO microbatches of
+    (1, PIPE_TOKENS) random embeddings in the compute dtype: the forward
+    and the backward of sum(out**2) against the same layers run one
+    microbatch at a time without the pipeline (``torch.autograd.grad`` a
+    microbatch, summed in microbatch order). Outputs within PIPE_OUT_TOL
+    and gradients within PIPE_GRAD_TOL of each tensor's largest magnitude;
+    ``wkv6`` and ``wkv6_bwd`` launched PIPE_LAYERS x PIPE_MICRO times each
+    at (1, PIPE_TOKENS, H, 64, 64) and no other kernel, in each of the
+    three runs (the pipeline, the pipeline again, the plain run). Before
+    them, outside the counted runs, both kernels are held to their plain
+    versions at that shape (and ``wkv6`` to ``wkv6_fma_ref`` bit for bit):
+    no other phase launches them at B = 1. Returns (summary, the layers,
+    each microbatch's gradient of stage 0's layers: phase 32's workers)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_forward, split_stages
+    from repro_torch.kernels import wkv6 as kwkv
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import common as C, rwkv6
+
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=PIPE_LAYERS)
+    hs = cfg.rwkv_head_size
+    shape = (1, PIPE_TOKENS, cfg.d_model // hs, hs, hs)
+    key = "x".join(map(str, shape))
+    want_n = PIPE_LAYERS * PIPE_MICRO
+    kernel_err = _hold_wkv6_pair(shape, cfg.dtype)
+    per_stage = PIPE_LAYERS // PIPE_STAGES
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = C.ParamTree({"blocks": [rwkv6.init_layer(gen, cfg) for _ in range(PIPE_LAYERS)]},
+                       stacked=True)
+    tree.requires_grad_(True)
+    blocks = list(tree.blocks)
+    plist = [list(b.parameters()) for b in blocks]
+    mbs = torch.randn((PIPE_MICRO, 1, PIPE_TOKENS, cfg.d_model), generator=gen,
+                      device="cuda").to(getattr(torch, cfg.dtype))
+    devs = np.empty(PIPE_STAGES, dtype=object)
+    devs[:] = [torch.device("cuda", 0)] * PIPE_STAGES
+    mesh = Mesh(devs, ("stage",))
+    stage = _pipe_stage(cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for ps in plist for p in ps)
+    log(f"[pipeline] {cfg.name}: {PIPE_LAYERS} of 32 layers at d_model {cfg.d_model}, "
+        f"{n_params} float32 parameters made on the card in {time.perf_counter() - t0:.2f}s; "
+        f"{PIPE_STAGES} stages of {per_stage} on {mesh}, {PIPE_MICRO} microbatches of "
+        f"(1, {PIPE_TOKENS}, {cfg.d_model}) {cfg.dtype} embeddings")
+
+    def held_launches(what: str) -> dict:
+        """The launches since the last ``reset_counters``: want_n of
+        ``wkv6`` and of ``wkv6_bwd``, all at ``shape``, and nothing else."""
+        launches = _all_launches()
+        by = {name: {"x".join(map(str, k)): n for k, n in fn.launches_by.items()}
+              for name, fn in (("wkv6", kwkv.wkv6), ("wkv6_bwd", kwkv.wkv6_bwd))}
+        check(launches == {k: want_n if k in ("wkv6", "wkv6_bwd") else 0 for k in launches},
+              f"{what} launched {launches}, not {want_n} wkv6 and wkv6_bwd and nothing else")
+        check(by == {"wkv6": {key: want_n}, "wkv6_bwd": {key: want_n}},
+              f"{what}'s wkv6 launches by shape {by}, not {want_n} each at {key}")
+        return by
+
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline_forward(stage, split_stages(blocks, PIPE_STAGES), mbs, mesh)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    by = held_launches("the pipeline")
+    pipe_grads = [[p.grad for p in ps] for ps in plist]
+    for ps in plist:
+        for p in ps:
+            p.grad = None
+    # again, the card's allocator warm: the pipeline's time beside the plain run's
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = pipeline_forward(stage, split_stages(blocks, PIPE_STAGES), mbs, mesh)
+    again.float().square().sum().backward()
+    torch.cuda.synchronize()
+    pipe_warm_s = time.perf_counter() - t0
+    held_launches("the pipeline's second run")
+    check(torch.equal(again, out) and all(torch.equal(p.grad, g) for ps, gs in
+                                           zip(plist, pipe_grads) for p, g in zip(ps, gs)),
+          "the pipeline's second run differs from its first")
+    del again
+    for ps in plist:
+        for p in ps:
+            p.grad = None
+
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_out, plain_grads, workers = [], None, []
+    flat = [p for ps in plist for p in ps]
+    for m in range(PIPE_MICRO):
+        y = mbs[m]
+        for b in blocks:
+            y = stage([b], y)
+        g = torch.autograd.grad(y.float().square().sum(), flat)
+        plain_out.append(y.detach())
+        plain_grads = ([x.clone() for x in g] if plain_grads is None
+                       else [a.add_(x) for a, x in zip(plain_grads, g)])
+        stage0 = [list(g[i * len(plist[0]):(i + 1) * len(plist[0])]) for i in range(per_stage)]
+        workers.append([C.tree_unflatten(blocks[i].tree(), ws) for i, ws in enumerate(stage0)])
+        del g
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    held_launches("the plain run")
+    plain_out = torch.stack(plain_out)
+    out_err = _rel_err(out.detach(), plain_out)
+    flat_pipe = [g for gs in pipe_grads for g in gs]
+    grad_errs = [_rel_err(a, b) for a, b in zip(flat_pipe, plain_grads)]
+    grads_equal = sum(torch.equal(a, b) for a, b in zip(flat_pipe, plain_grads))
+    out_equal = torch.equal(out.detach(), plain_out)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(out_err <= PIPE_OUT_TOL, f"pipeline outputs differ from the plain run by {out_err:.3e}")
+    check(max(grad_errs) <= PIPE_GRAD_TOL,
+          f"pipeline gradients differ from the plain run by {max(grad_errs):.3e}")
+    flops = 6 * n_params * PIPE_MICRO * PIPE_TOKENS
+    log(f"[pipeline] GPipe, {PIPE_MICRO} + {PIPE_STAGES} - 1 = "
+        f"{PIPE_MICRO + PIPE_STAGES - 1} clock steps: forward + backward {pipe_s:.3f}s, "
+        f"again {pipe_warm_s:.3f}s ({flops / pipe_warm_s / 1e12:.1f} TFLOP/s by 6*N*D; the "
+        f"same outputs and gradients bit for bit); the plain run, one microbatch at a "
+        f"time, {plain_s:.3f}s ({flops / plain_s / 1e12:.1f} TFLOP/s); wkv6 / wkv6_bwd launches by "
+        f"shape {by} in each of the three runs, nothing else; outputs within {out_err:.3e} of the plain run's largest "
+        f"magnitude (bit for bit: {out_equal}), gradients within {max(grad_errs):.3e} "
+        f"({grads_equal} of {len(grad_errs)} tensors bit for bit); peak device memory "
+        f"{peak:.2f} GiB")
+    del pipe_grads, flat_pipe, plain_grads, out, plain_out, mbs
+    tree.requires_grad_(False)
+    return ({"pipeline_s": pipe_s, "pipeline_again_s": pipe_warm_s, "plain_s": plain_s, "launches_by": by,
+             "kernel_err": kernel_err, "out_err": out_err, "out_bit_equal": out_equal,
+             "grad_err": max(grad_errs), "grads_bit_equal": grads_equal,
+             "grads": len(grad_errs), "peak_gib": peak, "params": n_params},
+            tree, workers)
+
+
+def phase_compressed_allreduce(workers: list) -> dict:
+    """Phase 32: ``compressed_psum`` over len(workers) workers on as
+    many ``cuda:0`` entries, each holding one microbatch's gradient of
+    stage 0's layers from phase 31, COMP_STEPS steps with error feedback
+    (the same gradients each step). Over every entry of every step
+    (:func:`_hold_compressed`): the codes, error buffers and means exactly
+    the reference's arithmetic recomputed in float64, each mean within
+    0.51 x its scale of the exact mean; every worker's mean the same
+    tensor. Then the same function on the CPU, over the same gradients' entries
+    that the card gathers for it (:func:`_cpu_entries`: a tensor's first
+    COMP_CPU_ENTRIES and, for every worker and step, the entry of largest
+    magnitude, so every scale is the whole tensor's): ``compress_int8``'s
+    codes and scales and each step's means and error buffers equal the
+    card's at those entries bit for bit."""
+    import torch
+    from repro_torch.models import common as C
+    from repro_torch.train import compress_int8, compressed_psum, init_error_buffer
+
+    n = len(workers)
+    numel = sum(t.numel() for t in C.tree_leaves(workers[0]))
+    log(f"[allreduce] {n} workers on cuda:0, {len(C.tree_leaves(workers[0]))} tensors, {numel} "
+        f"gradients a worker: an int8 payload of {numel / 1e9:.3f} GB a worker against "
+        f"{4 * numel / 1e9:.3f} GB in float32")
+
+    def run(grads):
+        """COMP_STEPS steps of the psum from zero buffers, and each worker's
+        ``compress_int8``: ([(means, errs, the errs it started from)], codes,
+        seconds a step)."""
+        errs = [init_error_buffer(g) for g in grads]
+        steps, secs = [], []
+        for _ in range(COMP_STEPS):
+            prev = [C.tree_leaves(e) for e in errs]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            means, errs = compressed_psum(grads, errs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            steps.append(([C.tree_leaves(m) for m in means], [C.tree_leaves(e) for e in errs],
+                          prev))
+        codes = [[compress_int8(t) for t in C.tree_leaves(g)] for g in grads]
+        return steps, codes, secs
+
+    card_steps, card_codes, card_s = run(workers)
+    leaves = [C.tree_leaves(g) for g in workers]
+    worst = 0.0
+    t0 = time.perf_counter()
+    for means, errs, prev in card_steps:
+        for i, got in enumerate(means[0]):
+            check(all(m[i] is got for m in means[1:]),
+                  "the workers on one card do not share their mean")
+            worst = max(worst, _hold_compressed([lv[i] for lv in leaves], [p[i] for p in prev],
+                                                got, [e[i] for e in errs]))
+    held_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx = _cpu_entries(leaves, card_steps)
+    host = [[t.reshape(-1)[j].cpu() for t, j in zip(lv, idx)] for lv in leaves]
+    cpu_steps, cpu_codes, cpu_s = run(host)
+    for (cm, ce, _), (hm, he, _) in zip(card_steps, cpu_steps):
+        for i, j in enumerate(idx):
+            check(torch.equal(cm[0][i].reshape(-1)[j].cpu(), hm[0][i]),
+                  "a compressed mean differs between card and CPU")
+            check(all(torch.equal(ce[w][i].reshape(-1)[j].cpu(), he[w][i]) for w in range(n)),
+                  "an error buffer differs between card and CPU")
+    for cw, hw in zip(card_codes, cpu_codes):
+        for (q, sc), (hq, hs), j in zip(cw, hw, idx):
+            check(torch.equal(q.reshape(-1)[j].cpu(), hq) and torch.equal(sc.cpu(), hs),
+                  "compress_int8's codes or scale differ between card and CPU")
+    cpu_s_all = time.perf_counter() - t0
+    entries = sum(len(j) for j in idx)
+    log(f"[allreduce] {COMP_STEPS} steps with error feedback: card {[round(x, 4) for x in card_s]}s "
+        f"a step; over every entry, every code, error buffer and mean the reference's "
+        f"arithmetic recomputed in float64, and each mean within {worst:.4f} x its scale of "
+        f"the exact mean (limit 0.51), held in {held_s:.2f}s; the CPU run over {entries} of the {numel} entries a worker (each tensor's first "
+        f"{COMP_CPU_ENTRIES} and its largest): {[round(x, 3) for x in cpu_s]}s a step, codes, "
+        f"scales, means and error buffers equal to the card's there bit for bit "
+        f"({cpu_s_all:.2f}s with the copies and comparisons)")
+    del card_steps, cpu_steps, card_codes, cpu_codes, host, leaves
+    torch.cuda.empty_cache()
+    return {"workers": n, "numel": numel, "payload_bytes": numel, "float32_bytes": 4 * numel,
+            "card_step_s": card_s, "cpu_step_s": cpu_s, "cpu_entries": entries,
+            "worst_err_over_scale": worst, "held_s": held_s, "cpu_check_s": cpu_s_all}
+
+
+def _hold_compressed(grads: list, prev: list, mean, errs: list) -> float:
+    """One tensor of one compressed step, on its device, over every entry:
+    with each float32 operation of the reference recomputed as a float64
+    operation rounded to float32 (the same value: float64 has more than
+    2 x 24 + 2 bits, so rounding twice after +, -, x or / is harmless),
+    x_w = g_w + e_w, the scale max_w max|x_w| / 127, the codes q_w =
+    round(x_w / scale) (half to even) with |q_w| <= 127, each worker's new
+    buffer exactly x_w - q_w * scale and the mean exactly (sum_w q_w) *
+    scale / n. Also the mean within 0.51 x scale of the exact mean of the
+    x_w. Returns |mean - exact mean| / scale at its largest."""
+    import torch
+
+    def f32(x):                        # float64 rounded to float32, kept in float64
+        return x.to(torch.float32).to(torch.float64)
+
+    n = len(grads)
+    xs = [f32(g.double() + e.double()) for g, e in zip(grads, prev)]
+    scale = max(f32(x.abs().max() / 127.0) for x in xs)
+    div = torch.clamp_min(scale, float(torch.tensor(1e-20, dtype=torch.float32)))
+    summed = torch.zeros_like(xs[0])
+    for w, x in enumerate(xs):
+        q = torch.round(f32(x / div))
+        check(float(q.abs().max()) <= 127, f"a compressed code is {float(q.abs().max())}")
+        want = f32(x - f32(q * scale)).to(torch.float32)
+        bad = int((errs[w] != want).sum())
+        check(bad == 0, f"worker {w}'s error buffer differs from x - q x scale at {bad} entries")
+        summed += q
+        del q, want
+    want = f32(f32(summed * scale) / n).to(torch.float32)
+    bad = int((mean != want).sum())
+    check(bad == 0, f"a compressed mean differs from sum(q) x scale / n at {bad} entries")
+    exact = sum(xs[1:], xs[0].clone()) / n
+    err = float((mean.double() - exact).abs().max())
+    scale = float(scale)
+    check(err <= 0.51 * scale + 1e-12,
+          f"a compressed mean is {err:.3e} from the exact mean, past 0.51 x {scale:.3e}")
+    return err / scale if scale else 0.0
+
+
+def _cpu_entries(leaves: list, steps: list) -> list:
+    """For each tensor (``leaves[w][i]``, worker w's), the flat indices the
+    CPU run takes, the same for every worker, on the card: the first
+    COMP_CPU_ENTRIES, and for each worker and step the entry where the
+    step's input (gradient plus carried error) is largest in magnitude. So
+    every max, and every scale, over them is the whole tensor's."""
+    import torch
+
+    out = []
+    for i, first in enumerate(leaves[0]):
+        picks = [torch.arange(min(first.numel(), COMP_CPU_ENTRIES), device=first.device)]
+        for _, _, prev in steps:
+            picks += [(lv[i].float() + p[i]).abs().reshape(-1).argmax().reshape(1)
+                      for lv, p in zip(leaves, prev)]
+        out.append(torch.unique(torch.cat(picks)))
+    return out
+
+
+def phase_reshard(tree) -> dict:
+    """Phase 33: phase 31's layers in the reference's layout (stacked on a
+    leading layer axis) as host numpy, placed by ``reshard_checkpoint``
+    under ``param_spec`` on a (data 2, model 2) mesh of ``cuda:0``, then on
+    (data 1, model 4): every piece's shape is its ``shard_shape``, and every
+    gathered leaf equals, bit for bit, the card tensor that the host array
+    was copied from."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import NamedSharding, flatten_paths, param_spec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common as C
+    from repro_torch.train import reshard_checkpoint
+
+    t0 = time.perf_counter()
+    card = flatten_paths(C.stack_tree(tree.tree(), True))
+    host = C.nest((("params", *p.split("/")), t.cpu().numpy()) for p, t in card.items())
+    to_host_s = time.perf_counter() - t0
+    out = {"to_host_s": to_host_s}
+    for grid in ((2, 2), (1, 4)):
+        mesh = make_host_mesh(grid[1], devices=["cuda:0"] * 4)
+
+        def rules(path, leaf):
+            return NamedSharding(mesh, param_spec(path[len("params/"):], leaf.shape, mesh))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed = flatten_paths(reshard_checkpoint(host, mesh, rules))
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        sharded = 0
+        for path, st in placed.items():
+            want = card[path[len("params/"):]]
+            for piece in st.pieces.flat:
+                check(tuple(piece.shape) == st.sharding.shard_shape(st.shape)
+                      and piece.device == torch.device("cuda", 0),
+                      f"{path}: a piece of {tuple(piece.shape)} on {piece.device}, not "
+                      f"{st.sharding.shard_shape(st.shape)} on cuda:0")
+            check(torch.equal(st.gather("cuda:0"), want),
+                  f"{path}: gathered from {st.sharding.spec} it is not the host array")
+            sharded += any(st.sharding.spec)
+        specs = collections.Counter(str(tuple(st.sharding.spec)) for st in placed.values())
+        log(f"[reshard] {mesh}: {len(placed)} leaves ({sharded} sharded) placed in "
+            f"{place_s:.2f}s, every piece its shard_shape, every gather bit for bit; leaves "
+            f"by spec {dict(specs)}")
+        out[f"{grid[0]}x{grid[1]}"] = {"place_s": place_s, "sharded": sharded,
+                                      "leaves": len(placed)}
+        del placed
+    del card, host
+    torch.cuda.empty_cache()
+    log(f"[reshard] the host copy of {sum(p.numel() for p in tree.parameters())} parameters "
+        f"took {to_host_s:.2f}s")
+    return out
+
+
+def phases_mesh(timed, phase_s: dict, alone: bool = False) -> dict:
+    """Phases 30-33, the multi-device layer, through ``timed`` (which
+    writes each phase's seconds into ``phase_s``). After phase 29 they must
+    take at most MESH_PHASES_BUDGET_S together; ``alone`` (``--mesh-only``)
+    only logs their time, since there phase 30 also pays the package's
+    first imports and traces. Returns their summaries."""
+    import torch
+
+    t_mesh = time.perf_counter()
+    out = {"specs": timed("specs", phase_specs)}
+    out["pipeline"], ptree, workers = timed("pipeline", phase_pipeline)
+    out["allreduce"] = timed("allreduce", phase_compressed_allreduce, workers)
+    del workers
+    out["reshard"] = timed("reshard", phase_reshard, ptree)
+    del ptree
+    torch.cuda.empty_cache()
+    mesh_s = time.perf_counter() - t_mesh
+    log(f"[mesh] phases 30-33 took {phase_s['specs']} / {phase_s['pipeline']} / "
+        f"{phase_s['allreduce']} / {phase_s['reshard']}s, {mesh_s:.1f}s together (budget "
+        f"{MESH_PHASES_BUDGET_S:.0f}s)")
+    check(alone or mesh_s <= MESH_PHASES_BUDGET_S,
+          f"phases 30-33 took {mesh_s:.1f}s, past their {MESH_PHASES_BUDGET_S:.0f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--num-series", type=int, default=FULL_SERIES)
@@ -4023,6 +4516,10 @@ def main(argv=None) -> int:
     ap.add_argument("--disk-dir", default=None,
                     help="directory for the disk phase's index (default: a new "
                          "temporary directory); removed at the end")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels, then run only phases 30-33 (the "
+                         "multi-device layer) and print their summaries; no "
+                         "kernels line and no ok line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4046,6 +4543,11 @@ def main(argv=None) -> int:
 
     name, smi = phase_device()
     timed("build", phase_build)
+    if args.mesh_only:
+        log(f"[main] summary {json.dumps(phases_mesh(timed, phase_s, alone=True))}")
+        log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")
+        print(smi)
+        return 0
     timed("adversarial", phase_adversarial)
     data, queries, local, launches, answers, summary = timed(
         "main", phase_main, args.num_series, args.queries)
@@ -4195,6 +4697,8 @@ def main(argv=None) -> int:
     summary["whisper_agree"] = timed("whisper_agree", phase_whisper_cpu_agreement)
     log(f"[whisper] phases 27-29 took {phase_s['whisper_serve']} / "
         f"{phase_s['whisper_train']} / {phase_s['whisper_agree']}s")
+    torch.cuda.empty_cache()
+    summary.update(phases_mesh(timed, phase_s))
     log(f"[main] summary {json.dumps(summary)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

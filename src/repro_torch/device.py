@@ -20,8 +20,12 @@ def _full_precision_matmuls() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` -> ``cuda``; raise if a CUDA device is asked for and absent."""
+def resolve_device(device: str | torch.device | None = None, *,
+                   shapes: bool = False) -> torch.device:
+    """``None`` -> ``cuda``; raise if a CUDA device is asked for and absent.
+    ``meta`` (shapes and dtypes, no storage) only where the caller builds
+    shapes (``shapes=True``: the ``init_cache`` functions, whose ``meta``
+    caches are ``launch/specs.py``'s ``cache_specs``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -29,7 +33,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "no CUDA device is available; pass device='cpu' to run the "
                 "port on the CPU")
         _full_precision_matmuls()
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (shapes and dev.type == "meta"):
         raise ValueError(f"device={device!r}; expected 'cuda' or 'cpu'")
     return dev
 

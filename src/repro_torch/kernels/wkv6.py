@@ -8,13 +8,16 @@ bfloat16 (one dtype): the kernel widens them as it stages them and writes
 ``out`` in that dtype; w, u and the state are float32. It loops over any T,
 so nothing is padded. The kernel's launcher picks its cp.async path or its
 element path by shape and pointer alignment (``csrc/wkv6.cu``).
-``wkv6.launches`` counts kernel launches.
+``wkv6.launches`` counts kernel launches, and ``wkv6.launches_by`` counts
+them by (B, T, H, K, V).
 
 :func:`wkv6_bwd` launches the gradient's kernel (``csrc/wkv6_bwd.cu``;
 its plain version is ``kernels/ref.py::wkv6_bwd_ref``) and counts its
-launches in ``wkv6_bwd.launches``.
+launches in ``wkv6_bwd.launches`` and ``wkv6_bwd.launches_by``.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -74,11 +77,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         err = entry(*(x.data_ptr() for x in ins), out.data_ptr(), s_out.data_ptr(),
                     b, t, h, dk, dv, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "wkv6")
-        count_launch(wkv6)
+        count_launch(wkv6, (b, t, h, dk, dv))
     return out, s_out
 
 
 wkv6.launches = 0
+wkv6.launches_by = collections.Counter()
 
 
 BWD_CHUNK = 8           # steps a checkpoint of csrc/wkv6_bwd.cu covers (its CK)
@@ -117,8 +121,9 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             *(x.data_ptr() for x in ins + outs + scratch), b, t, h, dk, dv,
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "wkv6_bwd")
-        count_launch(wkv6_bwd)
+        count_launch(wkv6_bwd, (b, t, h, dk, dv))
     return tuple(outs)
 
 
 wkv6_bwd.launches = 0
+wkv6_bwd.launches_by = collections.Counter()

@@ -14,9 +14,16 @@
 Scores are float32 products of compute-dtype operands, as the reference's
 ``preferred_element_type=jnp.float32`` einsums give: the operands are
 widened first, which is exact, and the sum runs in float32 (a bf16 einsum
-would round the scores to bf16). The reference's ``maybe_shard`` and
-``set_shard_hook`` annotate arrays for GSPMD across a device mesh; one card
-has no mesh, so they have no twin here.
+would round the scores to bf16).
+
+The layers call :func:`maybe_shard` with the reference's logical names at
+the reference's sites (``act_btd``, ``act_ff``, ``act_heads``,
+``kv_seq``, ``decode_scores``, ``moe_dispatch``, ``moe_hidden``); with no
+hook installed (:func:`set_shard_hook`) it hands back its argument, and
+``distributed/sharding.py`` installs one that resolves each name's
+placement on a mesh. ``init_*`` called with :data:`SHAPES_ONLY` in place
+of a generator build ``meta`` tensors and draw nothing (``launch/specs.py``,
+the twin of ``jax.eval_shape`` of ``init``).
 """
 from __future__ import annotations
 
@@ -29,6 +36,24 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.device import resolve_device
+
+# annotation hook installed by the distributed layer; identity by default
+_SHARD_HOOK: list = []
+
+
+def maybe_shard(x: torch.Tensor, logical: str) -> torch.Tensor:
+    """Apply the installed logical-sharding annotation hook (if any); with
+    none, ``x`` itself."""
+    for hook in _SHARD_HOOK:
+        x = hook(x, logical)
+    return x
+
+
+def set_shard_hook(fn=None) -> None:
+    """Install ``fn(x, logical) -> x`` as the hook, or none."""
+    _SHARD_HOOK.clear()
+    if fn is not None:
+        _SHARD_HOOK.append(fn)
 
 
 # ---------------------------------------------------------------------------
@@ -294,18 +319,35 @@ def grad_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 # init helpers
 # ---------------------------------------------------------------------------
 
+class ShapesOnly:
+    """Stands for the generator of ``init_*``: its device is ``meta``, so
+    each parameter is made as a ``meta`` tensor of its shape and dtype, and
+    nothing is drawn or allocated."""
+    device = torch.device("meta")
+
+
+SHAPES_ONLY = ShapesOnly()
+
+
+def normal(generator, shape, scale: float) -> torch.Tensor:
+    """float32 normal draws times ``scale`` on the generator's device; a
+    ``meta`` tensor of ``shape`` for :data:`SHAPES_ONLY`."""
+    if generator is SHAPES_ONLY:
+        return torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).mul_(scale)
+
+
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
                scale: float | None = None) -> torch.Tensor:
     """(in_dim, out_dim) float32 normal * scale (default 1/sqrt(in_dim)), on
     the generator's device."""
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    return torch.randn((in_dim, out_dim), generator=generator, dtype=torch.float32,
-                       device=generator.device).mul_(scale)
+    return normal(generator, (in_dim, out_dim), scale)
 
 
 def embed_init(generator: torch.Generator, vocab: int, dim: int) -> torch.Tensor:
-    return torch.randn((vocab, dim), generator=generator, dtype=torch.float32,
-                       device=generator.device).mul_(0.02)
+    return normal(generator, (vocab, dim), 0.02)
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +408,7 @@ def lm_logits(params: ParamTree, x: torch.Tensor, eps: float) -> torch.Tensor:
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    h = F.silu(x @ w_gate.to(dt)) * (x @ w_up.to(dt))
+    h = maybe_shard(F.silu(x @ w_gate.to(dt)) * (x @ w_up.to(dt)), "act_ff")
     return h @ w_down.to(dt)
 
 
@@ -375,7 +417,7 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
     """Two-matrix MLP with the tanh-approximated GELU (``jax.nn.gelu``'s
     default)."""
     dt = x.dtype
-    h = F.gelu(x @ w_up.to(dt) + b_up.to(dt), approximate="tanh")
+    h = maybe_shard(F.gelu(x @ w_up.to(dt) + b_up.to(dt), approximate="tanh"), "act_ff")
     return h @ w_down.to(dt) + b_down.to(dt)
 
 
@@ -496,13 +538,22 @@ def attention_chunked(q, k, v, q_pos, k_pos, spec: AttnSpec) -> torch.Tensor:
     return out.transpose(1, 2).to(q.dtype)            # (B,Sq,H,hd)
 
 
-def _ring_decode(q, k_cache, v_cache, ok, spec: AttnSpec) -> torch.Tensor:
+def _ring_decode(q, k_cache, v_cache, ok, spec: AttnSpec,
+                 annotate: bool = False) -> torch.Tensor:
     """One query position against the cache slots where ``ok`` (B, Smax):
-    the ring buffer's decode, and the global cache's."""
+    the ring buffer's decode, and (``annotate``: with the reference's
+    sequence-sharding annotations) the global cache's."""
     k = _expand_kv(k_cache, spec.num_heads // spec.num_kv_heads)
     v = _expand_kv(v_cache, spec.num_heads // spec.num_kv_heads)
-    logits = _scores(q, k, spec).masked_fill(~ok[:, None, None, :], -math.inf)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if annotate:
+        k, v = maybe_shard(k, "kv_seq"), maybe_shard(v, "kv_seq")
+    logits = _scores(q, k, spec)
+    if annotate:
+        logits = maybe_shard(logits, "decode_scores")
+    probs = torch.softmax(logits.masked_fill(~ok[:, None, None, :], -math.inf),
+                          dim=-1).to(q.dtype)
+    if annotate:
+        probs = maybe_shard(probs, "decode_scores")
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -513,7 +564,7 @@ def attention_decode(q, k_cache, v_cache, pos, spec: AttnSpec) -> torch.Tensor:
     ok = kpos[None, :] <= pos[:, None]
     if spec.window > 0:
         ok &= (pos[:, None] - kpos[None, :]) < spec.window
-    return _ring_decode(q, k_cache, v_cache, ok, spec)
+    return _ring_decode(q, k_cache, v_cache, ok, spec, annotate=True)
 
 
 def _project(params: ParamTree, name: str, x: torch.Tensor, heads: int,
@@ -541,6 +592,7 @@ def attention_forward(params: ParamTree, x: torch.Tensor, positions: torch.Tenso
         k_pos = positions
     else:
         k, v, k_pos = kv_override
+    q = maybe_shard(q, "act_heads")
     impl = spec.impl
     if impl != "full" and k.shape[1] % min(spec.chunk, k.shape[1]):
         impl = "full"                 # ragged KV (e.g. 1500-frame memory)

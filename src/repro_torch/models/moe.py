@@ -40,8 +40,7 @@ def init_moe(generator: torch.Generator, cfg: ArchConfig) -> dict:
     e, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
 
     def stack(shape, scale):
-        return torch.randn((e, *shape), generator=generator, dtype=torch.float32,
-                           device=generator.device).mul_(scale)
+        return C.normal(generator, (e, *shape), scale)
 
     return {
         "router": C.dense_init(generator, d, e, scale=0.02),
@@ -117,12 +116,12 @@ def moe_forward(params: ParamTree, x: torch.Tensor,
 
     _, stok, slot, sw, keep = _route(probs, cfg, cap)
 
-    disp = _dispatch(x, stok, slot, keep, e, cap)
+    disp = C.maybe_shard(_dispatch(x, stok, slot, keep, e, cap), "moe_dispatch")
 
     # the stacked expert FFN (SwiGLU)
     g = torch.einsum("becd,edf->becf", disp, params.mat("w_gate", dt))
     u = torch.einsum("becd,edf->becf", disp, params.mat("w_up", dt))
-    h = F.silu(g) * u
+    h = C.maybe_shard(F.silu(g) * u, "moe_hidden")
     out_buf = torch.einsum("becf,efd->becd", h, params.mat("w_down", dt)).reshape(b, e * cap, d)
 
     # combine: a stable sort by token keeps each token's k assignments in

@@ -94,8 +94,7 @@ def init_layer(generator: torch.Generator, kind: str, cfg: ArchConfig) -> dict:
         p["rec"] = {
             "w_x": C.dense_init(generator, d, rnn),
             "w_gate": C.dense_init(generator, d, rnn),
-            "conv_w": torch.randn((cfg.conv_width, rnn), generator=generator,
-                                  dtype=torch.float32, device=dev).mul_(0.1),
+            "conv_w": C.normal(generator, (cfg.conv_width, rnn), 0.1),
             "conv_b": full(rnn, 0.0),
             "lambda": full(rnn, 2.0),                 # sigmoid -> a ~ .88
             "w_input_gate": C.dense_init(generator, rnn, rnn, scale=0.01),
@@ -211,16 +210,18 @@ def forward(params: ParamTree, batch: dict, cfg: ArchConfig):
     remat = cfg.remat and torch.is_grad_enabled()
     for p, kind in zip(params.blocks, _pattern(cfg)):
         x = checkpoint(blk, x, p, kind, use_reentrant=False) if remat else blk(x, p, kind)
+        x = C.maybe_shard(x, "act_btd")
     return C.lm_logits(params, x, cfg.norm_eps), torch.zeros((), device=x.device)
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
                device: str | torch.device | None = None, dtype=None) -> dict:
-    """Per-layer decode state on ``device`` (default: the CUDA device): a
-    ring K/V cache (B, min(window, max_seq), G, hd) in the compute dtype for
-    an attention layer, the conv tail (B, W-1, rnn) in the compute dtype and
-    h (B, rnn) float32 for a recurrent one."""
-    dev = resolve_device(device)
+    """Per-layer decode state on ``device`` (default: the CUDA device;
+    ``meta`` for shapes only): a ring K/V cache (B, min(window, max_seq),
+    G, hd) in the compute dtype for an attention layer, the conv tail (B,
+    W-1, rnn) in the compute dtype and h (B, rnn) float32 for a recurrent
+    one."""
+    dev = resolve_device(device, shapes=True)
     dtype = dtype or _dtype(cfg)
     rnn = _d_rnn(cfg)
     window = min(cfg.window or max_seq, max_seq)

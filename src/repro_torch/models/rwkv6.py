@@ -69,8 +69,7 @@ def init_layer(generator: torch.Generator, cfg: ArchConfig) -> dict:
             "w0": full(-0.6),                                   # decay bias
             "w_lora_a": C.dense_init(generator, d, _DECAY_LORA, scale=0.01),
             "w_lora_b": C.dense_init(generator, _DECAY_LORA, d, scale=0.01),
-            "u": torch.randn((h, hs), generator=generator, dtype=torch.float32,
-                             device=dev).mul_(0.1),
+            "u": C.normal(generator, (h, hs), 0.1),
             "gn_w": full(1.0), "gn_b": full(0.0),
         },
         "cm": {
@@ -169,6 +168,7 @@ def channel_mix(cm: ParamTree, x: torch.Tensor, x_prev: torch.Tensor):
     dt = x.dtype
     xs = _shift(x, x_prev)
     k = torch.square(torch.relu(_lerp(x, xs, cm.mu_k) @ cm.mat("w_k", dt)))
+    k = C.maybe_shard(k, "act_ff")
     kv = k @ cm.mat("w_v", dt)
     return torch.sigmoid(_lerp(x, xs, cm.mu_r) @ cm.mat("w_r", dt)) * kv, x[:, -1]
 
@@ -189,8 +189,9 @@ def _layer(p: ParamTree, x, tm_x, cm_x, wkv_state, cfg: ArchConfig):
 def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
                device: str | torch.device | None = None) -> dict:
     """The O(1) recurrent state of every layer (``max_seq`` is unused: the
-    state does not grow), on ``device`` (default: the CUDA device)."""
-    dev = resolve_device(device)
+    state does not grow), on ``device`` (default: the CUDA device;
+    ``meta`` for shapes only)."""
+    dev = resolve_device(device, shapes=True)
     h, hs = _heads(cfg), cfg.rwkv_head_size
     sh = (cfg.num_layers, batch_size)
     return {
@@ -224,6 +225,7 @@ def _run(params: ParamTree, x: torch.Tensor, cache: dict, cfg: ArchConfig):
     for i, p in enumerate(params.blocks):
         args = (p, x, cache["tm_x"][i], cache["cm_x"][i], cache["wkv"][i], cfg)
         x, *st = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
+        x = C.maybe_shard(x, "act_btd")
         states.append(st)
     new = {name: torch.stack([s[j] for s in states]).to(cache[name].dtype)
            for j, name in enumerate(("tm_x", "cm_x", "wkv"))}

@@ -144,9 +144,11 @@ def forward(params: ParamTree, batch: dict, cfg: ArchConfig):
     x = embed_inputs(params, batch, cfg, dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     spec = _attn_spec(cfg, x.shape[1], window=cfg.window)
+    x = C.maybe_shard(x, "act_btd")
 
     def layer(x, p):
-        return _block_fwd(p, C.grad_cast(x, dtype), positions, cfg, spec)
+        y, aux = _block_fwd(p, C.grad_cast(x, dtype), positions, cfg, spec)
+        return C.maybe_shard(y, "act_btd"), aux
 
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=x.device)
@@ -164,8 +166,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
                device: str | torch.device | None = None, dtype=None) -> dict:
     """Per-layer K/V caches (L, B, Smax, G, hd) in the compute dtype (Smax
     capped at the window when there is one), on ``device`` (default: the
-    CUDA device)."""
-    dev = resolve_device(device)
+    CUDA device; ``meta`` for shapes only)."""
+    dev = resolve_device(device, shapes=True)
     dtype = dtype or _dtype(cfg)
     smax = min(max_seq, cfg.window) if cfg.window else max_seq
     shape = (cfg.num_layers, batch_size, smax, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -184,6 +186,7 @@ def prefill(params: ParamTree, batch: dict, cfg: ArchConfig, cache: dict):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     spec = _attn_spec(cfg, s, window=cfg.window)
+    x = C.maybe_shard(x, "act_btd")
     ks, vs = [], []
     for p in params.blocks:
         h = C.rms_norm(x, p.ln_attn, cfg.norm_eps)
@@ -191,6 +194,7 @@ def prefill(params: ParamTree, batch: dict, cfg: ArchConfig, cache: dict):
         ks.append(k)
         vs.append(v)
         x, _ = _block_fwd(p, x, positions, cfg, spec)
+        x = C.maybe_shard(x, "act_btd")
     x = C.rms_norm(x, params.ln_final, cfg.norm_eps)
     last = C.last_token_slice(x, batch)
     logits = last.to(torch.float32) @ params.mat("lm_head", dtype).to(torch.float32)

@@ -143,7 +143,7 @@ def _enc_layer(x: torch.Tensor, p: ParamTree, positions: torch.Tensor, cfg: Arch
     h = C.layer_norm(x, p.ln1_w, p.ln1_b, cfg.norm_eps)
     x = x + C.attention_forward(p.attn, h, positions, spec, rope_theta=0.0)
     h = C.layer_norm(x, p.ln2_w, p.ln2_b, cfg.norm_eps)
-    return x + _mlp(p.mlp, h)
+    return C.maybe_shard(x + _mlp(p.mlp, h), "act_btd")
 
 
 def _dec_layer(x: torch.Tensor, p: ParamTree, mk: torch.Tensor, mv: torch.Tensor,
@@ -157,7 +157,7 @@ def _dec_layer(x: torch.Tensor, p: ParamTree, mk: torch.Tensor, mv: torch.Tensor
     x = x + C.attention_forward(p.cross_attn, h, positions, spec_cross, rope_theta=0.0,
                                 kv_override=(mk, mv, mem_pos))
     h = C.layer_norm(x, p.ln3_w, p.ln3_b, cfg.norm_eps)
-    return x + _mlp(p.mlp, h)
+    return C.maybe_shard(x + _mlp(p.mlp, h), "act_btd")
 
 
 def _dec_layer_train(x, p, memory, positions, mem_pos, cfg, spec_self, spec_cross):
@@ -231,8 +231,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
                device: str | torch.device | None = None, dtype=None) -> dict:
     """Self-attention caches (L, B, Smax, G, hd) and cross-attention K/V
     (L, B, num_frames, G, hd) in the compute dtype, on ``device``
-    (default: the CUDA device)."""
-    dev = resolve_device(device)
+    (default: the CUDA device; ``meta`` for shapes only)."""
+    dev = resolve_device(device, shapes=True)
     dtype = dtype or _dtype(cfg)
     g, hd, layers = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
 

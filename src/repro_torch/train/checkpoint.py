@@ -9,9 +9,9 @@ of layers (``params/blocks/0/rec/w_x``) where the reference keeps one
 (recurrentgemma), and a JSON ``__meta__`` holding
 the step and the caller's extra metadata. It is written to ``.npz.tmp``
 and then renamed, so a crash mid-write never corrupts the latest
-checkpoint. The
-reference's ``reshard_checkpoint`` re-places leaves on a device mesh; one
-card has none, so it has no twin here (``ROADMAP.md``).
+checkpoint.
+:func:`reshard_checkpoint` places a host-loaded state's leaves on a mesh
+(``launch/mesh.py``) under the caller's sharding rules.
 """
 from __future__ import annotations
 
@@ -108,3 +108,22 @@ def load_checkpoint(ckpt_dir: str, step: int | None = None,
         flat = {key: torch.from_numpy(np.array(z[key])).to(dev)
                 for key in z.files if key != "__meta__"}
     return _unflatten(flat), meta
+
+
+def reshard_checkpoint(state: dict, mesh, sharding_rules) -> dict:
+    """Re-place every leaf of a host-loaded state under ``mesh``.
+
+    ``sharding_rules(path, leaf)`` gives a
+    :class:`~repro_torch.distributed.sharding.NamedSharding` (the leaf
+    becomes a ``ShardedTensor``, each piece an owned copy on its mesh
+    device) or None (a plain tensor copied onto the mesh's first device).
+    Checkpoints store unsharded arrays, so moving from one mesh to another
+    is only a placement decision here: the elastic-scaling primitive.
+    """
+    first = mesh.devices.flat[0]
+    out = {}
+    for path, leaf in _flatten(state).items():
+        sh = sharding_rules(path, leaf)
+        out[path] = (sh.place(leaf) if sh is not None
+                     else torch.as_tensor(leaf).to(first, copy=True))
+    return _unflatten(out)

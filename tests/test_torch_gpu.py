@@ -7,7 +7,9 @@ reader, RWKV-6 logits and tokens against the CPU's, the dense, vlm and MoE
 transformers' logits, tokens, train step and AdamW against the CPU's, and
 the RG-LRU scan kernel and recurrentgemma against the CPU, the
 recurrences' gradient kernels and both recurrent families' train steps
-against the CPU, whisper against the CPU, and the LM loader's staging.
+against the CPU, whisper against the CPU, the LM loader's staging, and
+GPipe stages and the int8 error-feedback mean on four entries of one card
+against the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -59,6 +61,7 @@ from repro_torch.core import tree as TT
 from repro_torch.core.index import IndexConfig
 from repro_torch.core.search import SearchConfig
 from repro_torch.data import pipeline as TP
+from repro_torch.distributed import pipeline as TPIPE
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import _build
 from repro_torch.kernels import dtw as kdtw
@@ -72,6 +75,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import common as TMC
 from repro_torch.models import get_model
 from repro_torch.models import rwkv6 as TR
+from repro_torch.train import compression as TCOMP
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TTS
 from repro_torch.serve import ServeConfig, ServeEngine
@@ -1235,3 +1239,46 @@ def test_whisper_smoke_on_the_card_equals_cpu(cuda):
             eng.submit(row, {"frames": f})
         outs.append(eng.run())
     assert outs[0] == outs[1]
+
+
+def test_pipeline_on_four_card_stages_equals_cpu(cuda):
+    """GPipe with P = 4 stages on four ``cuda`` entries (tanh layers, L = 8,
+    d = 16, microbatches of 4, M = 6): outputs and gradients of
+    sum(out**2) within 1e-5 and 1e-4 of the same pipeline on the CPU."""
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal((8, 16, 16)) * 0.3).astype(np.float32)
+    xs = rng.standard_normal((6, 4, 16)).astype(np.float32)
+
+    def stage(params, x):
+        for wi in params:
+            x = torch.tanh(x @ wi)
+        return x
+
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        tw = torch.from_numpy(w).to(dev).requires_grad_(True)
+        out = TPIPE.pipeline_forward(stage, TPIPE.split_stages(tw, 4),
+                                     torch.from_numpy(xs).to(dev), [dev] * 4)
+        (out ** 2).sum().backward()
+        got.append((out.detach().cpu(), tw.grad.cpu()))
+    assert float((got[0][0] - got[1][0]).abs().max()) < 1e-5
+    assert float((got[0][1] - got[1][1]).abs().max()) < 1e-4
+
+
+def test_compressed_mean_on_the_card_equals_cpu(cuda):
+    """The int8 error-feedback mean over four workers on one card, two
+    steps: means, error buffers, codes and scales bit for bit the CPU's."""
+    rng = np.random.default_rng(1)
+    grads = [{"w": rng.standard_normal((33, 65)).astype(np.float32) * (w + 1),
+              "b": rng.standard_normal(65).astype(np.float32)} for w in range(4)]
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        gs = [{k: torch.from_numpy(v).to(dev) for k, v in g.items()} for g in grads]
+        errs = [TCOMP.init_error_buffer(g) for g in gs]
+        steps = []
+        for _ in range(2):
+            means, errs = TCOMP.compressed_psum(gs, errs)
+            steps.append([means[0]["w"], means[0]["b"]] + [e[k] for e in errs for k in "wb"])
+        steps.append([t for g in gs for t in TCOMP.compress_int8(g["w"])])
+        runs.append([t.cpu() for ts in steps for t in ts])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
