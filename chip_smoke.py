@@ -258,7 +258,14 @@ Phases (any failure ends the run with a non-zero exit):
 33. ``reshard_checkpoint`` of phase 31's layers as host numpy (the
    reference's layout) under ``param_spec`` on a (data 2, model 2) mesh of
    ``cuda:0``, then on (data 1, model 4): every piece its ``shard_shape``,
-   every gather bit for bit.
+   every gather bit for bit;
+34. the dry-run's cost model (``launch/dryrun.py``, ``meta`` traces) of the
+   steps phases 12, 15, 24, 25 and 28 timed, at their config, depth, batch
+   and dtype on a one-chip mesh: matmul FLOPs, other operations, eager
+   bytes, the roofline's compute and memory terms beside each measured
+   time (a median; phase 12's prefill: its second wave), which must be at
+   least the compute term; no allocation on the card, no kernel launched,
+   at most 15 s.
 
 The line before the last two is ``{"kernels": [...]}`` (every row with
 ``device_ms``, a CUDA graph's time; two ``dtw_band`` rows from phase 7b,
@@ -4479,6 +4486,149 @@ def phase_reshard(tree) -> dict:
     return out
 
 
+COST_MODEL_BUDGET_S = 15.0                         # phase 34
+CLOSED_FORM_TOL = 0.01             # phase 34: counted matmul FLOPs against the closed form
+
+
+def _closed_form_matmul_flops(cfg, shape) -> float:
+    """Matmul FLOPs of one step of ``cfg`` at ``shape`` by a closed form,
+    apart from the cost model's trace: 2 x each weight matrix's entries x
+    the rows it multiplies (the decoder's tokens; whisper's encoder, and
+    its cross-attention K and V, the B x num_frames frames; the head the
+    last position only in a prefill, the embedding none unless it is the
+    head), plus 4 B H hd Sq Sk an attention layer (scores and values over
+    every key: the port masks, it skips nothing). A train step is its
+    forward, the backward twice over, and remat's recompute of every
+    layer but its MLP's w_down, whose output only enters the residual sum;
+    the head is not recomputed. The recurrences are no matmuls (the cost
+    model adds them apart)."""
+    import math
+    from repro_torch.distributed.sharding import _param_groups
+    from repro_torch.launch.specs import param_specs
+
+    b, s = shape.global_batch, shape.seq_len
+    train = shape.kind == "train"
+    tokens = b if shape.kind == "decode" else b * s
+    frames = b * cfg.num_frames if cfg.family == "audio" else 0
+    head_rows = tokens if train else b
+    layers = head = last = 0
+    groups = _param_groups(param_specs(cfg))
+    for path, whole, tensors in groups:
+        leaf, n = path.rsplit("/", 1)[-1], math.prod(whole)
+        cross_kv = path.startswith("dec/cross_attn/") and leaf in ("wk", "wv")
+        rows = frames if path.startswith("enc/") or cross_kv else tokens
+        if path == "lm_head":
+            head += n * head_rows
+        elif tensors[0].dim() >= 2 and path != "embed" and leaf not in ("u", "conv_w"):
+            layers += n * rows
+            last += n * rows if leaf == "w_down" else 0
+    if not any(path == "lm_head" for path, _, _ in groups):     # tied
+        head += cfg.vocab_size * cfg.d_model * head_rows
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    if cfg.family in ("dense", "moe"):
+        attn = cfg.num_layers * s * s
+    elif cfg.family == "hybrid":
+        attn = sum(k == "attn" for k in cfg._pattern()) * s * s
+    elif cfg.family == "audio":
+        f = cfg.num_frames
+        attn = cfg.encoder_layers * f * f + cfg.num_layers * (s * s + s * f)
+    else:
+        attn = 0
+    forward = 2 * layers + 4 * b * h * hd * attn
+    if not train:
+        return forward + 2 * head
+    return (3 + cfg.remat) * forward - cfg.remat * 2 * last + 3 * 2 * head
+
+
+def phase_cost_model(summary: dict) -> dict:
+    """Phase 34: the dry-run's cost model (``launch/dryrun.py::step_costs``
+    on a one-chip mesh, ``meta`` traces) of the steps this run timed, at
+    their config, depth, batch and dtype: phase 12's rwkv6-7b prefill (its
+    second wave) and decode (SERVE_DEPTH layers), phase 15's minicpm-2b,
+    phase 24's rwkv6-7b (RWKV_TRAIN_LAYERS), phase 25's recurrentgemma-2b
+    and phase 28's whisper train steps. Each measured time must be at
+    least its roofline's
+    compute term (a time under it would mean the count is wrong), and each
+    step's matmul FLOPs within CLOSED_FORM_TOL of
+    :func:`_closed_form_matmul_flops` (an undercount shows there); the
+    memory and collective terms are not held here. The phase allocates
+    nothing on the card, launches no kernel and takes at most
+    COST_MODEL_BUDGET_S."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost_analysis, dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.arch import ShapeConfig
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launched = _all_launches()
+    mesh = make_host_mesh(devices=["cuda:0"])
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+    rwkv = get_config(RWKV_ARCH)
+    steps = [
+        # the later wave: the first pays the process's cold start (seconds)
+        ("rwkv6-7b prefill (phase 12)", _served(rwkv),
+         ShapeConfig("prefill", LM_PROMPT, LM_SLOTS, "prefill"), None,
+         summary["lm"]["prefill_ms"][-1] / 1e3),
+        ("rwkv6-7b decode (phase 12)", _served(rwkv),
+         ShapeConfig("decode", LM_PROMPT + LM_NEW, LM_SLOTS, "decode"), None,
+         summary["lm"]["decode_ms_median"] / 1e3),
+        ("minicpm-2b train (phase 15)", get_config(DENSE_ARCH),
+         ShapeConfig("train", TRAIN_S, TRAIN_B, "train"), tcfg,
+         summary["dense_train"]["step_s_median"]),
+        ("rwkv6-7b train (phase 24)", dataclasses.replace(rwkv, num_layers=RWKV_TRAIN_LAYERS),
+         ShapeConfig("train", TRAIN_S, TRAIN_B, "train"), tcfg,
+         summary["rwkv_train"]["step_s_median"]),
+        ("recurrentgemma-2b train (phase 25)", get_config(GRIFFIN_ARCH),
+         ShapeConfig("train", TRAIN_S, TRAIN_B, "train"), tcfg,
+         summary["griffin_train"]["step_s_median"]),
+        ("whisper-large-v3 train (phase 28)", get_config(WHISPER_ARCH),
+         ShapeConfig("train", WHISPER_TRAIN_S, TRAIN_B, "train"), tcfg,
+         summary["whisper_train"]["step_s_median"]),
+    ]
+    out = {}
+    for tag, cfg, shape, step_tcfg, measured in steps:
+        costs = dryrun.step_costs(cfg, shape, mesh, step_tcfg)["costs"]
+        rf = cost_analysis.roofline_terms(costs.flops, costs.bytes_per_device(1), 0.0, 1,
+                                          other_ops=costs.other_ops)
+        closed = _closed_form_matmul_flops(cfg, shape)
+        off = abs(costs.flops - closed) / closed
+        row = {"flops": costs.flops, "closed_form_flops": closed, "other_ops": costs.other_ops,
+               "bytes": costs.bytes_per_device(1), "compute_s": rf.compute_s,
+               "memory_s": rf.memory_s, "measured_s": measured,
+               "measured_over_compute": measured / rf.compute_s}
+        out[tag] = row
+        log(f"[cost] {tag}: {cfg.num_layers} layers, B={shape.global_batch} "
+            f"S={shape.seq_len}: {costs.flops:.4e} matmul FLOPs ({off:.2e} from the closed "
+            f"form's {closed:.4e}), {costs.other_ops:.4e} other "
+            f"operations, {row['bytes']:.4e} bytes (eager); compute_s {rf.compute_s:.6f}, "
+            f"memory_s {rf.memory_s:.6f}; measured {measured:.6f}s = "
+            f"{row['measured_over_compute']:.2f} x compute_s, "
+            f"{measured / rf.memory_s:.2f} x memory_s")
+        check(off <= CLOSED_FORM_TOL,
+              f"{tag}: the cost model's {costs.flops:.6e} matmul FLOPs are {off:.3%} from the "
+              f"closed form's {closed:.6e}, past {CLOSED_FORM_TOL:.0%}")
+        check(measured >= rf.compute_s,
+              f"{tag}: measured {measured:.6f}s is under the cost model's compute term "
+              f"{rf.compute_s:.6f}s: the count is wrong")
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    check(after == before and peak == before,
+          f"the cost model allocated on the card: {before} -> {after} bytes, peak {peak}")
+    check(_all_launches() == launched, "the cost model launched a kernel")
+    took = time.perf_counter() - t0
+    log(f"[cost] phase 34 took {took:.1f}s (budget {COST_MODEL_BUDGET_S:.0f}s); no allocation "
+        f"on the card ({before} bytes before and after, peak {peak}), no kernel launched")
+    check(took <= COST_MODEL_BUDGET_S,
+          f"phase 34 took {took:.1f}s, past its {COST_MODEL_BUDGET_S:.0f}s")
+    return out
+
+
 def phases_mesh(timed, phase_s: dict, alone: bool = False) -> dict:
     """Phases 30-33, the multi-device layer, through ``timed`` (which
     writes each phase's seconds into ``phase_s``). After phase 29 they must
@@ -4699,6 +4849,7 @@ def main(argv=None) -> int:
         f"{phase_s['whisper_train']} / {phase_s['whisper_agree']}s")
     torch.cuda.empty_cache()
     summary.update(phases_mesh(timed, phase_s))
+    summary["cost_model"] = timed("cost_model", phase_cost_model, summary)
     log(f"[main] summary {json.dumps(summary)}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s; by phase (s): {phase_s}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -260,14 +260,7 @@ def _refine_path(q, layout: HerculesLayout, cand_lb, d0, p0, cfg: SearchConfig):
     ``p_top`` and ``accessed`` do not change; nor does ``exhausted``, whose
     bound test fails once the chunk test has.
     """
-    n_pad = cand_lb.shape[0]
-    sorted_lb, order = torch.sort(cand_lb, stable=True)
-    if cfg.refine_select == "topk":
-        c_budget = min(n_pad, cfg.topk_budget_chunks * cfg.chunk)
-        sorted_lb, order = sorted_lb[:c_budget], order[:c_budget]
-        n_chunks = c_budget // cfg.chunk
-    else:
-        n_chunks = n_pad // cfg.chunk
+    sorted_lb, order, n_chunks = _refine_order(cand_lb, cfg)
     slack = torch.tensor(1.0 - cfg.lb_slack, dtype=_F32, device=q.device)
     k = cfg.k
     d_top, p_top = d0, p0
@@ -278,14 +271,32 @@ def _refine_path(q, layout: HerculesLayout, cand_lb, d0, p0, cfg: SearchConfig):
                 not bool(sorted_lb[c * cfg.chunk] * slack < d_top[k - 1]):
             break
         sl = slice(c * cfg.chunk, (c + 1) * cfg.chunk)
-        idx, lbs = order[sl], sorted_lb[sl]
-        live = lbs * slack < d_top[k - 1]            # Alg. 14 line 4 re-check
-        d = torch.where(live, _row_dists(q, layout.lrd, idx), INF)
-        d_top, p_top = _merge_topk(d_top, p_top, d, idx.to(_I32), k)
-        acc = acc + live.sum()
+        d_top, p_top, n_live = _refine_chunk(q, layout, order[sl], sorted_lb[sl], slack,
+                                             d_top, p_top, k)
+        acc = acc + n_live
         c += 1
     exhausted = c >= n_chunks and bool(sorted_lb[-1] * slack < d_top[k - 1])
     return d_top, p_top, acc, exhausted
+
+
+def _refine_order(cand_lb, cfg: SearchConfig):
+    """The candidates by lower bound, ties in position order, cut to the
+    budget under ``topk``. Returns (sorted_lb, order, chunks)."""
+    n_pad = cand_lb.shape[0]
+    sorted_lb, order = torch.sort(cand_lb, stable=True)
+    if cfg.refine_select == "topk":
+        c_budget = min(n_pad, cfg.topk_budget_chunks * cfg.chunk)
+        return sorted_lb[:c_budget], order[:c_budget], c_budget // cfg.chunk
+    return sorted_lb, order, n_pad // cfg.chunk
+
+
+def _refine_chunk(q, layout: HerculesLayout, idx, lbs, slack, d_top, p_top, k: int):
+    """One refinement chunk: the rows ``idx`` whose bounds ``lbs`` can still
+    beat BSF_k, merged into the top-k. Returns (d_top, p_top, rows live)."""
+    live = lbs * slack < d_top[k - 1]            # Alg. 14 line 4 re-check
+    d = torch.where(live, _row_dists(q, layout.lrd, idx), INF)
+    d_top, p_top = _merge_topk(d_top, p_top, d, idx.to(_I32), k)
+    return d_top, p_top, live.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +305,20 @@ def _refine_path(q, layout: HerculesLayout, cand_lb, d0, p0, cfg: SearchConfig):
 
 def _query_one(q, tree: HerculesTree, layout: HerculesLayout,
                cfg: SearchConfig, max_depth: int):
+    d_top, p_top, accessed, cand_lb, eapca_pr, sax_pr, l_max = _prune(
+        q, tree, layout, cfg, max_depth)
+
+    # ---- Adaptive access-path selection (Alg. 10) ---------------------------
+    d_f, p_f, path, acc_f = _finish_one(
+        q, layout, cfg, d_top, p_top, accessed, cand_lb, eapca_pr, sax_pr)
+    return d_f, p_f, path, eapca_pr, sax_pr, acc_f, l_max + 1
+
+
+def _prune(q, tree: HerculesTree, layout: HerculesLayout, cfg: SearchConfig,
+           max_depth: int):
+    """Phases 1-3 for one query: the approximate answer and each row's
+    candidate bound (+inf where pruned), with no branch on a value.
+    Returns (d_top, p_top, accessed, cand_lb, eapca_pr, sax_pr, l_max)."""
     n = layout.series_len
     dev = q.device
     slack = torch.tensor(1.0 - cfg.lb_slack, dtype=_F32, device=dev)
@@ -329,11 +354,7 @@ def _query_one(q, tree: HerculesTree, layout: HerculesLayout,
     cand_lb = torch.where(series_in_cand, lb, INF)
     n_cand = (cand_lb * slack < bsf).sum().to(_F32)
     sax_pr = 1.0 - S.div_rn(n_cand, layout.num_series)
-
-    # ---- Adaptive access-path selection (Alg. 10) ---------------------------
-    d_f, p_f, path, acc_f = _finish_one(
-        q, layout, cfg, d_top, p_top, accessed, cand_lb, eapca_pr, sax_pr)
-    return d_f, p_f, path, eapca_pr, sax_pr, acc_f, l_max + 1
+    return d_top, p_top, accessed, cand_lb, eapca_pr, sax_pr, l_max
 
 
 def _finish_one(q, layout: HerculesLayout, cfg: SearchConfig,

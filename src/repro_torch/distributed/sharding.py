@@ -98,18 +98,32 @@ class NamedSharding:
     def place(self, tensor) -> "ShardedTensor":
         """``tensor`` (a tensor or a host array) cut into pieces on the
         mesh's devices: each device's piece is a copy of its own (never an
-        alias of ``tensor``), the whole tensor staged once a distinct
-        device."""
-        whole = tensor if isinstance(tensor, torch.Tensor) else torch.as_tensor(tensor)
+        alias of ``tensor``): a tensor staged whole once a distinct device,
+        a host array copied out a piece at a time."""
+        if not isinstance(tensor, torch.Tensor):
+            tensor = np.asarray(tensor)
         staged: dict = {}
         pieces = np.empty(self.mesh.devices.shape, dtype=object)
         for pos in np.ndindex(pieces.shape):
             dev = self.mesh.devices[pos]
+            cut = self._slices(tensor.shape, pos)
+            if isinstance(tensor, np.ndarray):      # each piece copied out once
+                pieces[pos] = owned_tensor(tensor[cut], dev)
+                continue
             if dev not in staged:
-                staged[dev] = whole.to(dev)
-            pieces[pos] = staged[dev][self._slices(whole.shape, pos)].clone(
-                memory_format=torch.contiguous_format)
-        return ShardedTensor(pieces, self, tuple(whole.shape), whole.dtype)
+                staged[dev] = tensor.to(dev)
+            pieces[pos] = staged[dev][cut].clone(memory_format=torch.contiguous_format)
+        return ShardedTensor(pieces, self, tuple(tensor.shape), pieces.flat[0].dtype)
+
+
+def owned_tensor(x, device) -> torch.Tensor:
+    """``x`` (a tensor or a host array) on ``device``, copied once: it
+    shares no memory with ``x``. A host array is never shared, not even
+    for a moment: a read-only memory map makes PyTorch warn, and the
+    warning, once a process, would hide a later real alias."""
+    if isinstance(x, np.ndarray):
+        return torch.tensor(x, device=device)
+    return torch.as_tensor(x).to(device, copy=True)
 
 
 class ShardedTensor:

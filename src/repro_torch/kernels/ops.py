@@ -11,7 +11,10 @@ here.
 ``wkv6`` and ``rg_lru_scan`` are differentiable: when grad is on and an
 input needs it they go through :class:`WKV6Fn` and :class:`RGLRUScanFn`,
 whose backward is a hand-written kernel too on CUDA tensors (the plain
-backward on CPU tensors, or with ``mode="ref"``).
+backward on CPU tensors, or with ``mode="ref"``). On ``meta`` tensors (a
+shape-level trace: ``launch/dryrun.py``) both, forward and backward, give
+empty results of the plain versions' shapes and dtypes and loop over
+nothing; the dry-run counts the recurrences analytically.
 """
 from __future__ import annotations
 
@@ -92,7 +95,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     kernel = resolve_kernel_mode(mode, _device(*xs)) == "cuda"
     if _needs_grad(xs):
         return WKV6Fn.apply(*xs, kernel)
-    return _wkv6.wkv6(*xs) if kernel else _ref.wkv6_ref(*xs)
+    return _wkv6.wkv6(*xs) if kernel else _plain_wkv6(*xs)
 
 
 def rg_lru_scan(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor, *,
@@ -104,11 +107,42 @@ def rg_lru_scan(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor, *,
     kernel = resolve_kernel_mode(mode, _device(*xs)) == "cuda"
     if _needs_grad(xs):
         return RGLRUScanFn.apply(*xs, kernel)
-    return _rg_lru.rg_lru_scan(*xs) if kernel else _ref.rg_lru_scan_ref(*xs)
+    return _rg_lru.rg_lru_scan(*xs) if kernel else _plain_rg_lru_scan(*xs)
 
 
 def _needs_grad(tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+# The plain versions, or on ``meta`` only their results' shapes and dtypes:
+# the plain loops would run T steps of shape-level operations a layer.
+
+def _plain_wkv6(r, k, v, w, u, state):
+    if r.is_meta:
+        return (r.new_empty((*r.shape[:3], v.shape[-1])),
+                state.new_empty(state.shape, dtype=torch.float32))
+    return _ref.wkv6_ref(r, k, v, w, u, state)
+
+
+def _plain_wkv6_bwd(r, k, v, w, u, state, dout, dstate):
+    if r.is_meta:
+        f32 = torch.float32
+        return (r.new_empty(r.shape), k.new_empty(k.shape), v.new_empty(v.shape),
+                w.new_empty(w.shape, dtype=f32), u.new_empty(u.shape, dtype=f32),
+                state.new_empty(state.shape, dtype=f32))
+    return _ref.wkv6_bwd_ref(r, k, v, w, u, state, dout, dstate)
+
+
+def _plain_rg_lru_scan(a, g, h0):
+    if a.is_meta:
+        return a.new_empty(a.shape), h0.new_empty(h0.shape)
+    return _ref.rg_lru_scan_ref(a, g, h0)
+
+
+def _plain_rg_lru_scan_bwd(a, y, h0, dy, dh_t):
+    if a.is_meta:
+        return a.new_empty(a.shape), a.new_empty(a.shape), h0.new_empty(h0.shape)
+    return _ref.rg_lru_scan_bwd_ref(a, y, h0, dy, dh_t)
 
 
 class WKV6Fn(torch.autograd.Function):
@@ -123,13 +157,13 @@ class WKV6Fn(torch.autograd.Function):
     def forward(ctx, r, k, v, w, u, state, kernel: bool):
         ctx.kernel = kernel
         ctx.save_for_backward(r, k, v, w, u, state)
-        return (_wkv6.wkv6 if kernel else _ref.wkv6_ref)(r, k, v, w, u, state)
+        return (_wkv6.wkv6 if kernel else _plain_wkv6)(r, k, v, w, u, state)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout, dstate):
         r, k, v, w, u, state = ctx.saved_tensors
-        bwd = _wkv6.wkv6_bwd if ctx.kernel else _ref.wkv6_bwd_ref
+        bwd = _wkv6.wkv6_bwd if ctx.kernel else _plain_wkv6_bwd
         return (*bwd(r, k, v, w, u, state, dout.to(r.dtype), dstate), None)
 
 
@@ -141,7 +175,7 @@ class RGLRUScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, g, h0, kernel: bool):
         ctx.kernel = kernel
-        y, h_t = (_rg_lru.rg_lru_scan if kernel else _ref.rg_lru_scan_ref)(a, g, h0)
+        y, h_t = (_rg_lru.rg_lru_scan if kernel else _plain_rg_lru_scan)(a, g, h0)
         ctx.save_for_backward(a, y, h0)
         return y, (h_t.clone() if h_t is h0 else h_t)
 
@@ -149,5 +183,5 @@ class RGLRUScanFn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy, dh_t):
         a, y, h0 = ctx.saved_tensors
-        bwd = _rg_lru.rg_lru_scan_bwd if ctx.kernel else _ref.rg_lru_scan_bwd_ref
+        bwd = _rg_lru.rg_lru_scan_bwd if ctx.kernel else _plain_rg_lru_scan_bwd
         return (*bwd(a, y, h0, dy, dh_t), None)

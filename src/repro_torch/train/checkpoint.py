@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import owned_tensor
 from repro_torch.models import common as C
 
 _SEP = "/"
@@ -124,6 +125,5 @@ def reshard_checkpoint(state: dict, mesh, sharding_rules) -> dict:
     out = {}
     for path, leaf in _flatten(state).items():
         sh = sharding_rules(path, leaf)
-        out[path] = (sh.place(leaf) if sh is not None
-                     else torch.as_tensor(leaf).to(first, copy=True))
+        out[path] = sh.place(leaf) if sh is not None else owned_tensor(leaf, first)
     return _unflatten(out)

@@ -236,9 +236,11 @@ def test_clean_sites_are_linted(project, rel, scope):
     assert not [f for f in _lint(sources[rel], rel, index) if f.context == scope]
 
 
+@pytest.mark.filterwarnings("error::UserWarning")
 def test_reshard_of_a_mapped_checkpoint_owns_its_pieces(tmp_path):
     """A leaf that is a memory map is placed as copies: no piece, and no
-    plain tensor, shares the map's memory."""
+    plain tensor, shares the map's memory; and no read-only array reaches
+    ``torch`` (its non-writable ``UserWarning`` is an error here)."""
     import numpy as np
     import torch
 
